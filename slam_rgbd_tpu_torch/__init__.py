@@ -1,15 +1,19 @@
-"""PyTorch + CUDA port of slam_rgbd_tpu, tracking path first.
+"""PyTorch + CUDA port of slam_rgbd_tpu: tracking, keyframes, relocalization.
 
 Mirrors the layout and names of `slam_rgbd_tpu` so that each module's
-counterpart is easy to find. It shares the configuration tree with the JAX
-package (`slam_rgbd_tpu.core.config`, which needs only numpy) and never
-imports jax. Kernels are CUDA C++ for Hopper under `ops/csrc/`, built with
-nvcc at first use.
+counterpart is easy to find. It imports nothing of the JAX package and never
+imports jax: what it needs from there it keeps as its own copy (the
+configuration tree, `core/config.py`). Kernels are CUDA C++ for Hopper under
+`ops/csrc/`, built with nvcc at first use. Entry points run on the CUDA
+device unless the caller asks for the CPU.
 """
 
-from slam_rgbd_tpu.core.config import (  # noqa: F401
+from slam_rgbd_tpu_torch.core.config import (  # noqa: F401
     CameraIntrinsics,
     SLAMConfig,
     astra_default_config,
 )
-from slam_rgbd_tpu_torch.runtime.session import TrackingSession  # noqa: F401
+from slam_rgbd_tpu_torch.runtime.session import (  # noqa: F401
+    SLAMSession,
+    TrackingSession,
+)

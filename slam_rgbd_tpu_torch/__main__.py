@@ -1,9 +1,11 @@
 """Command line of the port: `python -m slam_rgbd_tpu_torch run synthetic:N`.
 
-Counterpart of the `run` verb of `slam_rgbd_tpu.cli`: tracks a synthetic
-sequence, writes the TUM trajectory and prints the ATE against ground truth.
+Counterpart of the `run` verb of `slam_rgbd_tpu.cli`: runs the SLAM session
+over a synthetic sequence, writes the TUM trajectory and prints keyframes,
+map points and the ATE against ground truth. It runs on the CUDA device;
+`--device cpu` asks for the CPU.
 
-    python -m slam_rgbd_tpu_torch run synthetic:200 --traj out.txt --device cuda
+    python -m slam_rgbd_tpu_torch run synthetic:200 --traj out.txt
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from slam_rgbd_tpu.core.config import SLAMConfig, astra_default_config
+from slam_rgbd_tpu_torch.core.config import SLAMConfig, astra_default_config
 
 
 def _load_config(path: str | None) -> SLAMConfig:
@@ -21,19 +23,20 @@ def _load_config(path: str | None) -> SLAMConfig:
 def cmd_run(args) -> int:
     from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
     from slam_rgbd_tpu_torch.io.synthetic import SyntheticSequence
-    from slam_rgbd_tpu_torch.runtime.session import TrackingSession
+    from slam_rgbd_tpu_torch.runtime.session import SLAMSession
 
     if not args.input.startswith("synthetic"):
         raise SystemExit(f"unrecognized input {args.input!r}: expected 'synthetic[:N]'")
     n = int(args.input.split(":")[1]) if ":" in args.input else 100
     cfg = _load_config(args.config)
     seq = SyntheticSequence(n, cfg.camera, device=args.device)
-    session = TrackingSession(cfg, device=args.device)
+    session = SLAMSession(cfg, device=args.device)
     for ts, depth, rgb in seq:
         session.process_frame(ts, depth, rgb)
     session.flush_pipeline()
     print(f"frames={session.state.frames} keyframes={session.state.keyframes} "
-          f"lost={session.state.lost}")
+          f"map_points={session.map_point_count()} lost={session.state.lost} "
+          f"relocalized={session.state.relocalized}")
     if args.traj:
         session.save_trajectory(args.traj)
         print(f"trajectory -> {args.traj}")
@@ -50,7 +53,8 @@ def main(argv=None) -> int:
     pr.add_argument("input", help="synthetic[:N]")
     pr.add_argument("--traj", help="write the TUM trajectory here")
     pr.add_argument("--config", help="YAML config (default: Astra profile)")
-    pr.add_argument("--device", default="cpu", help="cpu or cuda")
+    pr.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
     return cmd_run(args)
 

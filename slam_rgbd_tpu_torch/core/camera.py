@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from slam_rgbd_tpu.core.config import CameraIntrinsics
+from slam_rgbd_tpu_torch.core.config import CameraIntrinsics
 
 
 def depth_to_metres(depth_raw: torch.Tensor, cam: CameraIntrinsics) -> torch.Tensor:

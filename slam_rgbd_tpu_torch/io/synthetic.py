@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slam_rgbd_tpu.core.config import CameraIntrinsics
+from slam_rgbd_tpu_torch.core.config import CameraIntrinsics
 from slam_rgbd_tpu_torch.core import se3
 
 
@@ -172,15 +172,21 @@ def orbit_trajectory(n_frames: int, spec: SceneSpec = SceneSpec(),
 
 
 class SyntheticSequence:
-    """Iterable RGB-D sequence with ground truth, rendered on `device`."""
+    """Iterable RGB-D sequence with ground truth, rendered on `device`: the
+    CUDA device unless the caller asks for "cpu"; without a card the default
+    raises."""
 
     def __init__(self, n_frames: int, cam: CameraIntrinsics,
                  spec: SceneSpec = SceneSpec(), fps: float = 30.0,
-                 device="cpu", **traj_kw):
+                 device="cuda", **traj_kw):
         self.cam = cam
         self.spec = spec
         self.fps = fps
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SyntheticSequence was asked for a CUDA device but torch sees "
+                "none; pass device='cpu' to render on the CPU")
         self.poses = orbit_trajectory(n_frames, spec, **traj_kw)
         self.timestamps = np.arange(n_frames, dtype=np.float64) / fps
 

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from slam_rgbd_tpu.core.config import CameraIntrinsics, ICPConfig
+from slam_rgbd_tpu_torch.core.config import CameraIntrinsics, ICPConfig
 from slam_rgbd_tpu_torch.core import se3
 from slam_rgbd_tpu_torch.core.camera import pixel_grid
 from slam_rgbd_tpu_torch.ops import gn_reduce as gn_ops

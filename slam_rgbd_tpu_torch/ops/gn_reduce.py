@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from slam_rgbd_tpu.core.config import CameraIntrinsics, ICPConfig
+from slam_rgbd_tpu_torch.core.config import CameraIntrinsics, ICPConfig
 
 SRC_CHANNELS = 8
 TGT_CHANNELS = 10

@@ -1,23 +1,28 @@
-"""Tracking session: the per-frame tracking path of the SLAM session.
+"""SLAM session: per-frame tracking, keyframe insertion, relocalization.
 
-Counterpart of the tracking path of `slam_rgbd_tpu/runtime/session.py`
-(`SLAMSession.process_frame`, `_steady_step`, `_frame_summary`, the
-trajectory ring and the pending-decision queue):
+Counterpart of `slam_rgbd_tpu/runtime/session.py` without its backend:
 
-    frame -> pyramid -> ICP track -> keyframe decision -> trajectory ring
+    frame -> pyramid -> ICP track (dense, every frame)
+          -> keyframe decision -> [features -> map match -> insert
+          -> odometry edge -> cull]                      (on a keyframe)
+          -> lost? -> [features -> map-wide match -> 3D-3D solve]
 
-A positive keyframe decision moves the reference keyframe pose to the
-frame's pose. There is no map yet: features, map association, relocalization
-and the BA / loop backend come with later slices, so a lost frame keeps
-integrating odometry (the reference's fallback between relocalization
-attempts).
+Every keyframe runs the feature stage, associates its keypoints with the map
+(`ops.hamming.gated_match`), inserts itself and its new points, appends the
+odometry edge and culls under-observed points. A lost frame is relocalized
+against the whole map (`ops.hamming.hamming_top2`, both directions, then a
+robust 3D-3D solve), on the first lost frame and then every fourth. Local
+BA, loop closure and the pose graph solver come with the backend slice, so
+no keyframe pose is optimized yet.
 
 Decision pipelining as in the reference: frame t queues its tracking and a
 (4,) control summary on the device and starts an asynchronous copy of the
 summary to pinned host memory, marked by a CUDA event. The decisions of
 frame t are applied at the start of a later call, once the event has
 completed, or forced when `runtime.max_decision_lag` frames are in flight.
-Steady-state tracking never waits on the device.
+Steady-state tracking never waits on the device, and neither does a keyframe
+insert: the host mirrors the keyframe count. A relocalization has the one
+blocking fetch of its (4,) stats.
 """
 
 from __future__ import annotations
@@ -30,15 +35,38 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slam_rgbd_tpu.core.config import (
-    CameraIntrinsics, ICPConfig, KeyframeConfig, SLAMConfig,
+from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
+from slam_rgbd_tpu_torch.core import camera, se3
+from slam_rgbd_tpu_torch.core.config import (
+    CameraIntrinsics, ICPConfig, KeyframeConfig, ORBConfig, SLAMConfig,
 )
-from slam_rgbd_tpu_torch.core import camera
 from slam_rgbd_tpu_torch.eval.trajectory import save_trajectory_tum
-from slam_rgbd_tpu_torch.mapping.map import should_insert_keyframe
+from slam_rgbd_tpu_torch.features import detect as fdetect
+from slam_rgbd_tpu_torch.features import match as fmatch
+from slam_rgbd_tpu_torch.features import orb as forb
+from slam_rgbd_tpu_torch.features.pose3d import solve_pose3d
+from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame
 
 log = logging.getLogger("slam_rgbd_tpu_torch.session")
+
+
+def _features(depth_raw, rgb, orb: ORBConfig, cam: CameraIntrinsics):
+    """The whole feature stage: detect + describe + keypoint depth.
+    -> (Keypoints, Descriptors, pts (K, 3), ok (K,))."""
+    intensity = camera.rgb_to_intensity(rgb) / 255.0
+    kp, pyr = fdetect.detect_pyramid(
+        intensity,
+        n_features=orb.n_features,
+        n_levels=orb.n_levels,
+        scale_factor=orb.scale_factor,
+        threshold=orb.fast_threshold,
+        min_threshold=orb.fast_min_threshold,
+    )
+    desc = forb.describe(kp, pyr, orb.scale_factor)
+    depth_m = camera.depth_to_metres(depth_raw, cam)
+    pts, ok = forb.keypoint_depth(kp, depth_m, cam)
+    return kp, desc, pts, ok & kp.valid
 
 
 def _frame_summary(T_world, last_kf_T, valid_fraction, rmse,
@@ -46,7 +74,7 @@ def _frame_summary(T_world, last_kf_T, valid_fraction, rmse,
     """The per-frame control scalars in one (4,) tensor: inlier fraction,
     ICP rmse, pose finiteness, keyframe decision."""
     finite = torch.isfinite(T_world).all()
-    should = should_insert_keyframe(T_world, last_kf_T, valid_fraction, kcfg)
+    should = smap.should_insert_keyframe(T_world, last_kf_T, valid_fraction, kcfg)
     return torch.stack([
         valid_fraction.to(torch.float32), rmse.to(torch.float32),
         finite.to(torch.float32), should.to(torch.float32),
@@ -69,6 +97,77 @@ def _steady_step(
     return pyr, T_world, motion, summary, buf_T, buf_kfT
 
 
+def _kf_insert(m, edges, n_edges, kp_uv, signs, pts, ok, T_pose, ts,
+               prev_kf_idx: int, kf_idx: int, cfg: SLAMConfig):
+    """The keyframe-insert device stage: map association (two-tier gated
+    match at the keyframe's own pose), keyframe / point insertion, the
+    odometry edge, and point culling. Nothing is read back to the host.
+
+    `prev_kf_idx < 0` (the bootstrap keyframe) has no map to match against
+    and no edge to add; both indices are host integers, so that is a host
+    branch.
+    """
+    kcfg = cfg.keyframes
+    has_map = prev_kf_idx >= 0
+    if has_map:
+        match_pid = smap.match_against_map(
+            m, signs, ok, kp_uv, pts[:, 2], T_pose,
+            cam=cfg.camera,
+            max_distance=float(cfg.orb.match_threshold),
+            kp_pts=pts,
+            merge_radius=kcfg.merge_radius,
+        )
+    else:
+        match_pid = torch.full((signs.shape[0],), -1, dtype=torch.int32,
+                               device=signs.device)
+    m = smap.insert_keyframe(m, T_pose, ts, kp_uv, pts, ok, signs, match_pid)
+    last_kf_T = m.kf_pose[kf_idx].clone()
+
+    if has_map:
+        # odometry edge between consecutive keyframes
+        T_rel = se3.inverse(m.kf_pose[prev_kf_idx]) @ T_pose
+        edges, n_edges = edges.add(n_edges, prev_kf_idx, kf_idx, T_rel, 1.0)
+
+    n_culled = torch.zeros((), dtype=torch.int32, device=signs.device)
+    if kcfg.cull_min_obs > 0:
+        m, n_culled = smap.cull_points(
+            m, kf_idx, min_obs=kcfg.cull_min_obs, max_age_kf=kcfg.cull_max_age_kf,
+        )
+    return m, edges, n_edges, last_kf_T, n_culled
+
+
+def _reloc(m, signs, ok, pts, T_est, cfg: SLAMConfig, generator=None):
+    """The relocalization solve: map-wide descriptor match, robust 3D-3D
+    solve, consensus gate, and the implied rigid correction
+    C = T_fixed T_est^-1. -> (T_fixed, C, stats (4,) = [accept, inliers,
+    n_valid, |t(C)|]), all on the device."""
+    mt = fmatch.match(
+        signs, ok, m.pt_signs, m.pt_valid,
+        max_distance=float(cfg.orb.match_threshold),
+    )
+    target = m.pt_xyz[mt.idx2.long()]
+    res = solve_pose3d(pts, target, mt.valid & ok, iters=8, generator=generator)
+    # consensus gate: a relocalization that explains under half of its own
+    # matches is an aliased solution (repeated texture)
+    accept = res.ok & (res.inliers >= 0.5 * res.n_valid.to(torch.float32))
+    T_fixed = se3.normalize_rotation(res.T)
+    C = T_fixed @ se3.inverse(T_est)
+    stats = torch.stack([
+        accept.to(torch.float32),
+        res.inliers.to(torch.float32),
+        res.n_valid.to(torch.float32),
+        torch.linalg.norm(C[:3, 3]),
+    ])
+    return T_fixed, C, stats
+
+
+def _traj_correct(buf_T: torch.Tensor, start: int, C: torch.Tensor) -> None:
+    """Left-multiply the rigid correction C onto ring entries [start:), in
+    place (a relocalization rewrites the poses logged since the lost
+    frame)."""
+    buf_T[start:] = C @ buf_T[start:]
+
+
 @dataclass
 class FrameStats:
     timestamp: float
@@ -84,6 +183,7 @@ class SessionState:
     frames: int = 0
     keyframes: int = 0
     lost: int = 0
+    relocalized: int = 0
 
 
 @dataclass
@@ -94,8 +194,13 @@ class _PendingFrame:
     event: "torch.cuda.Event | None"  # completes when `summary` has landed
     st: FrameStats
     ts: float
+    depth_raw: torch.Tensor  # the frame, on the device: a keyframe insert
+    rgb: torch.Tensor  # or a relocalization takes its features from it
+    traj_i: int  # ring slot of this frame's logged pose
     frame_i: int
-    T: torch.Tensor  # (4, 4) this frame's pose on the device
+    # (4, 4) this frame's pose on the device; a relocalization composes its
+    # correction onto it
+    T: torch.Tensor
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -111,7 +216,8 @@ def _resolve_device(device) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "TrackingSession(device='cuda') but torch sees no CUDA device"
+                "the session was asked for a CUDA device but torch sees none; "
+                "pass device='cpu' to run on the CPU"
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -120,17 +226,18 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-class TrackingSession:
-    """Tracking-only RGB-D session over one sequence.
+class SLAMSession:
+    """RGB-D SLAM session over one sequence.
 
     Call `process_frame(ts, depth_raw, rgb)` per frame, then `poses()` /
-    `save_trajectory()` and `stats`. `device` is "cpu" or "cuda"; asking
-    for CUDA without a card raises. On CUDA the session turns TF32 off for
-    matrix products and cuDNN, since the 6x6 solves and pose products need
-    full float32.
+    `keyframe_poses()` / `save_trajectory()` and `stats`. The session runs
+    on the CUDA device unless the caller asks for `device="cpu"`; without a
+    card the default raises. On CUDA the session turns TF32 off for matrix
+    products and cuDNN, since the 6x6 solves and pose products need full
+    float32.
     """
 
-    def __init__(self, config: SLAMConfig, device="cpu"):
+    def __init__(self, config: SLAMConfig, device="cuda"):
         self.cfg = config
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
@@ -138,11 +245,23 @@ class TrackingSession:
             torch.backends.cudnn.allow_tf32 = False
         self.state = SessionState()
         self.stats: list[FrameStats] = []
+        self.map = smap.empty_map(config.keyframes, self._kp_capacity(), self.device)
+        self.edges = EdgeList.empty(4 * config.keyframes.max_keyframes, self.device)
+        self.n_edges = torch.zeros((), dtype=torch.int32, device=self.device)
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         self.T_world = eye
         self.motion = eye
         self.last_kf_T = eye
+        self.last_kf_idx = -1
         self.prev_pyr = None
+        # Host mirror of the map's keyframe count: insertion drops at
+        # capacity deterministically, so the host never reads `map.n_kf`
+        # back from the device.
+        self._n_kf_host = 0
+        # Consecutive low-quality frames; relocalization is attempted on
+        # the 1st and then every 4th (it has a blocking fetch, and the
+        # odometry fallback is usually within centimetres anyway).
+        self._lost_streak = 0
         self._pending: collections.deque[_PendingFrame] = collections.deque()
         self._frame_i = 0
         self._last_kf_frame_i = -(10 ** 9)
@@ -152,9 +271,49 @@ class TrackingSession:
         # device-side trajectory ring: pose and reference-keyframe pose per
         # frame, fetched once in `poses()`
         self._traj_ts: list[float] = []
+        self._frame_kf_idx: list[int] = []  # reference keyframe slot per frame
         self._traj_cap = 4096
         self._traj_T = torch.zeros((self._traj_cap, 4, 4), device=self.device)
         self._traj_kfT = torch.zeros((self._traj_cap, 4, 4), device=self.device)
+
+    # ------------------------------------------------------------- warmup
+    def warmup(self):
+        """Run every device path of the session once, up front: the kernel
+        build, the tracking step, the keyframe insert with and without a
+        map, the relocalization solve (whose batched SVD loads a solver
+        library at first use) and the trajectory correction. Must run on a
+        fresh session; ends with `reset()`.
+        """
+        cam = self.cfg.camera
+        # a textured sloped plane: valid geometry and FAST corners
+        yy, xx = np.meshgrid(np.arange(cam.height), np.arange(cam.width), indexing="ij")
+        depth = (1800.0 + 2.0 * xx + 1.5 * yy).astype(np.uint16)
+        rgb = np.broadcast_to(
+            (((xx // 8 + yy // 8) % 2) * 160 + 48).astype(np.uint8)[..., None],
+            (cam.height, cam.width, 3),
+        ).copy()
+        depth_t, rgb_t = self._upload(depth), self._upload(rgb)
+        self.process_frame(0.0, depth_t, rgb_t)  # bootstrap keyframe
+        self.process_frame(1.0 / 30, depth_t, rgb_t)  # steady step
+        self.flush_pipeline()
+        # keyframes against an existing map: association + merge tiers
+        self._insert_keyframe(2.0 / 30, depth_t, rgb_t, self.T_world)
+        self._insert_keyframe(3.0 / 30, depth_t, rgb_t, self.T_world)
+        self._relocalize(depth_t, rgb_t)
+        _traj_correct(self._traj_T, 0, torch.eye(4, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
+
+    # -------------------------------------------------------------- utils
+    def _kp_capacity(self) -> int:
+        """Total keypoint slots after per-level budget rounding."""
+        orb = self.cfg.orb
+        return sum(fdetect._per_level_budget(
+            orb.n_features, orb.n_levels, orb.scale_factor))
+
+    def _features(self, depth_t, rgb_t):
+        return _features(depth_t, rgb_t, self.cfg.orb, self.cfg.camera)
 
     # ------------------------------------------------------------- inputs
     def _upload(self, x) -> torch.Tensor:
@@ -179,13 +338,16 @@ class TrackingSession:
         rgb_t = self._upload(rgb)
 
         if self.prev_pyr is None:
-            # first frame: bootstrap keyframe at the current pose
+            # first frame: bootstrap a keyframe at the current pose, unless
+            # state was loaded into the session, where only the tracking
+            # reference needs anchoring
             self.prev_pyr = camera.build_frame_pyramid(
                 depth_t, self.cfg.camera, levels=self.cfg.icp.levels, rgb=rgb_t
             )
             st = FrameStats(ts, 0.0, 1.0, 0.0, True, True)
-            self._last_kf_frame_i = self._frame_i
-            self._insert_keyframe(self.T_world)
+            if self._n_kf_host == 0:
+                self._last_kf_frame_i = self._frame_i
+                self._insert_keyframe(ts, depth_t, rgb_t, self.T_world)
             self._log_pose(ts)
             self._frame_i += 1
             return self._finish(st, t0)
@@ -200,10 +362,11 @@ class TrackingSession:
             self.cfg.camera, self.cfg.icp, self.cfg.keyframes,
         )
         self._traj_ts.append(ts)
+        self._frame_kf_idx.append(self.last_kf_idx)
         st = FrameStats(ts, 0.0, -1.0, -1.0, False, True)  # until it lands
         self._pending.append(_PendingFrame(
-            *self._fetch_async(summary), st=st, ts=ts,
-            frame_i=self._frame_i, T=self.T_world,
+            *self._fetch_async(summary), st=st, ts=ts, depth_raw=depth_t,
+            rgb=rgb_t, traj_i=traj_i, frame_i=self._frame_i, T=self.T_world,
         ))
         self._frame_i += 1
         return self._finish(st, t0)
@@ -233,25 +396,81 @@ class TrackingSession:
         e.st.inlier_fraction = vf
         e.st.icp_rmse = rmse
         e.st.tracking_ok = vf > 0.25 and finite > 0.5
+
+        force_insert = False
         if not e.st.tracking_ok:
             self.state.lost += 1
+            self._lost_streak += 1
+            if self._lost_streak != 1 and self._lost_streak % 4 != 0:
+                # odometry-only fallback between rate-limited reloc tries
+                log.warning(
+                    "tracking degraded at t=%.3f (inliers %.2f); integrating "
+                    "odometry", e.ts, vf,
+                )
+                return
             log.warning(
-                "tracking degraded at t=%.3f (inliers %.2f); integrating "
-                "odometry", e.ts, vf,
+                "tracking lost at t=%.3f (inliers %.2f); relocalizing", e.ts, vf
             )
-            return
+            T_fixed, C = self._relocalize(e.depth_raw, e.rgb, T_est=e.T)
+            if T_fixed is not None:
+                self.state.relocalized += 1
+                e.st.tracking_ok = True
+                self._lost_streak = 0
+                self.motion = torch.eye(4, device=self.device)
+                # rigid correction from the lost frame's estimate; applies
+                # to the live pose, every frame logged since, and every
+                # still-pending estimate (they all inherited the bad pose)
+                e.T = T_fixed
+                self.T_world = se3.normalize_rotation(C @ self.T_world)
+                _traj_correct(self._traj_T, e.traj_i, C)
+                for later in self._pending:
+                    later.T = C @ later.T
+                should = 1.0 if self._should_insert(vf) else 0.0
+                force_insert = should > 0.5  # decision is already fresh
+            # on a failed reloc we keep integrating (odometry-only fallback)
+        else:
+            self._lost_streak = 0
+
         gap_ok = (
             e.frame_i - self._last_kf_frame_i
             >= self.cfg.keyframes.kf_min_gap_frames
         )
-        fresh = e.frame_i >= self._kf_ref_fresh_from
-        if should > 0.5 and gap_ok and fresh:
+        # a decision computed against a stale reference pose (dispatched
+        # before the newest insert resolved) is suppressed
+        fresh = e.frame_i >= self._kf_ref_fresh_from or force_insert
+        if e.st.tracking_ok and should > 0.5 and gap_ok and fresh:
             e.st.is_keyframe = True
             self._last_kf_frame_i = e.frame_i
-            self._insert_keyframe(e.T)
+            self._insert_keyframe(e.ts, e.depth_raw, e.rgb, e.T)
 
-    def _insert_keyframe(self, T_pose: torch.Tensor):
-        self.last_kf_T = T_pose
+    def _should_insert(self, inlier_ratio: float) -> bool:
+        ratio = torch.full((), inlier_ratio, device=self.device)
+        return bool(smap.should_insert_keyframe(
+            self.T_world, self.last_kf_T, ratio, self.cfg.keyframes))
+
+    # ----------------------------------------------------------- keyframe
+    def _insert_keyframe(self, ts, depth_t, rgb_t, T_pose=None):
+        """Insert a keyframe observed at pose `T_pose` (the frame's own pose
+        estimate: under decision pipelining the live `T_world` has already
+        advanced past it)."""
+        if T_pose is None:
+            T_pose = self.T_world
+        M = self.cfg.keyframes.max_keyframes
+        if self._n_kf_host >= M:
+            log.warning("keyframe capacity %d reached; insert dropped", M)
+            return
+        kp, desc, pts, ok = self._features(depth_t, rgb_t)
+        prev_kf_idx = self.last_kf_idx
+        kf_idx = self._n_kf_host
+        (self.map, self.edges, self.n_edges, self.last_kf_T,
+         _n_culled) = _kf_insert(
+            self.map, self.edges, self.n_edges, kp.uv, desc.signs, pts, ok,
+            T_pose, float(ts), prev_kf_idx, kf_idx, self.cfg,
+        )
+        self._n_kf_host += 1
+        self.last_kf_idx = kf_idx
+        # frames already dispatched used the previous reference keyframe:
+        # their (in-flight) keyframe decisions are stale from here on
         self._kf_ref_fresh_from = self._frame_i
         self.state.keyframes += 1
 
@@ -277,8 +496,34 @@ class TrackingSession:
         if i >= self._traj_cap:
             self._grow_traj_ring()
         self._traj_ts.append(ts)
+        self._frame_kf_idx.append(self.last_kf_idx)
         self._traj_T[i] = self.T_world
         self._traj_kfT[i] = self.last_kf_T
+
+    # -------------------------------------------------------- reloc/reset
+    def _relocalize(self, depth_t, rgb_t, T_est=None):
+        """Match the frame's features against all map points; solve 3D-3D.
+
+        Returns `(T_fixed, C)`, the relocalized camera-to-world pose and the
+        rigid correction `C = T_fixed @ T_est^-1`, or `(None, None)` on
+        failure. One host fetch, of the solve's packed gate scalars; the
+        caller applies C. A single lost frame can only be centimetres off,
+        so a relocalization demanding a metre-scale jump is an aliased
+        solve and is rejected here."""
+        if self._n_kf_host == 0:
+            return None, None
+        if T_est is None:
+            T_est = self.T_world
+        _, desc, pts, ok = self._features(self._upload(depth_t), self._upload(rgb_t))
+        T_fixed, C, stats = _reloc(self.map, desc.signs, ok, pts, T_est, self.cfg)
+        accept, inliers, n_valid, jump = stats.tolist()  # the one blocking fetch
+        if accept < 0.5:
+            return None, None
+        if jump > 1.0:
+            log.warning("relocalization rejected: implied %.2f m jump", jump)
+            return None, None
+        log.info("relocalized with %d/%d inliers", int(inliers), int(n_valid))
+        return T_fixed, C
 
     def reset(self):
         """Full reset: a fresh session on the same config and device."""
@@ -286,16 +531,54 @@ class TrackingSession:
 
     # ------------------------------------------------------------ outputs
     def poses(self) -> tuple[np.ndarray, np.ndarray]:
-        """(timestamps (n,), camera-to-world poses (n, 4, 4)), one fetch.
+        """(timestamps (n,), camera-to-world poses (n, 4, 4)).
 
-        Without a map no keyframe pose is ever corrected, so each frame's
-        pose is the tracked one as logged.
+        Each frame pose is re-anchored to its reference keyframe's CURRENT
+        pose: T = T_kf_now @ (T_kf_then^-1 @ T_frame_then). Until a backend
+        moves keyframes the two keyframe poses are equal and the result is
+        the tracked pose up to float32 rounding.
         """
         self.flush_pipeline()
         n = len(self._traj_ts)
-        return np.asarray(self._traj_ts), self._traj_T[:n].cpu().numpy()
+        ts = np.asarray(self._traj_ts)
+        if n == 0:
+            return ts, np.zeros((0, 4, 4), np.float32)
+        traj_T = self._traj_T[:n].cpu().numpy()
+        kf_T_then = self._traj_kfT[:n].cpu().numpy()
+        kf_idx = np.asarray(self._frame_kf_idx, dtype=np.int32)
+        # batched rigid inverse of the reference-keyframe poses
+        R = kf_T_then[:, :3, :3]
+        t = kf_T_then[:, :3, 3]
+        inv = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        inv[:, :3, :3] = R.transpose(0, 2, 1)
+        inv[:, :3, 3] = -np.einsum("nji,nj->ni", R, t)
+        kf_pose_now = self.map.kf_pose.cpu().numpy()
+        anchor = kf_pose_now[np.maximum(kf_idx, 0)]
+        out = np.einsum("nij,njk,nkl->nil", anchor, inv, traj_T)
+        return ts, np.where((kf_idx >= 0)[:, None, None], out, traj_T)
+
+    def keyframe_poses(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps (k,), camera-to-world poses (k, 4, 4)) of the
+        keyframes inserted so far."""
+        self.flush_pipeline()
+        n = self._n_kf_host
+        return (self.map.kf_time[:n].cpu().numpy(),
+                self.map.kf_pose[:n].cpu().numpy())
+
+    def map_point_count(self) -> int:
+        """Number of valid map points (one fetch)."""
+        return int(smap.map_point_count(self.map))
 
     def save_trajectory(self, path: str):
         """TUM-format full trajectory (`SaveTrajectoryTUM` parity)."""
         ts, T = self.poses()
         save_trajectory_tum(path, ts, T)
+
+    def save_keyframe_trajectory(self, path: str):
+        """TUM-format keyframe trajectory (`SaveKeyFrameTrajectoryTUM`)."""
+        ts, T = self.keyframe_poses()
+        save_trajectory_tum(path, ts, T)
+
+
+# the name the tracking-only slice gave the session
+TrackingSession = SLAMSession

@@ -179,13 +179,19 @@ def test_trajectory_io_and_ate_match_jax(tmp_path, rng):
 
 
 def test_port_never_imports_jax():
-    """Every port module imports without jax. A subprocess: this test
-    process imported jax already (tests/conftest.py)."""
+    """Every port module imports without jax and without anything of the
+    JAX package. A subprocess: this test process imported both already."""
     code = (
         "import sys, pkgutil, importlib, slam_rgbd_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "for need in ('runtime.session', 'ops.hamming', 'ops.gn_reduce', 'features.detect',\n"
+        "             'features.orb', 'features.match', 'features.pose3d', 'mapping.map',\n"
+        "             'backend.pose_graph', 'core.config', 'interop', '__main__'):\n"
+        "    assert p.__name__ + '.' + need in sys.modules, need\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "ref = [k for k in sys.modules if k == 'slam_rgbd_tpu' or k.startswith('slam_rgbd_tpu.')]\n"
+        "assert not ref, ref\n"
         "print(len(mods))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -193,4 +199,38 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 24
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(root, "chip_smoke.py")).read()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s and "slam_rgbd_tpu " not in s + " ", s
+            assert "slam_rgbd_tpu." not in s, s
+
+
+@pytest.mark.parametrize("profile", ["astra_default_config", "tum_fr1_config",
+                                     "tum_fr2_config"])
+def test_config_copy_equals_the_jax_package_tree(profile, tmp_path):
+    """The port keeps its own copy of the configuration tree: the same
+    classes, fields and defaults, field by field, and one YAML for both."""
+    import dataclasses
+
+    from slam_rgbd_tpu.core import config as jcfg
+    from slam_rgbd_tpu_torch.core import config as tcfg
+
+    a, b = getattr(jcfg, profile)(), getattr(tcfg, profile)()
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert dataclasses.asdict(jcfg.SLAMConfig()) == dataclasses.asdict(tcfg.SLAMConfig())
+    names = lambda mod: sorted(
+        (n, [f.name for f in dataclasses.fields(c)]) for n, c in vars(mod).items()
+        if dataclasses.is_dataclass(c) and isinstance(c, type))
+    assert names(jcfg) == names(tcfg)
+    path = tmp_path / "cfg.yaml"
+    b.to_yaml(str(path))
+    assert dataclasses.asdict(jcfg.SLAMConfig.from_yaml(str(path))) == dataclasses.asdict(b)
+    assert tcfg.SLAMConfig.from_yaml(str(path)) == b
+    assert a.camera.scaled(2.0).fx == b.camera.scaled(2.0).fx

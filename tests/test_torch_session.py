@@ -1,4 +1,5 @@
-"""The tracking slice end to end: `TrackingSession` vs a loop over the JAX
+"""The tracking slice end to end: the session (`TrackingSession`, the name the
+tracking-only slice gave `SLAMSession`) vs a loop over the JAX
 package's fused `_steady_step` on its kernel path (`backend="pallas"`).
 
 The JAX loop applies each frame's keyframe decision before the next frame,
@@ -139,7 +140,7 @@ def test_default_icp_is_42_reductions_per_frame(monkeypatch):
         return real(*args)
 
     monkeypatch.setattr(tg, "gn_reduce", counting)
-    sess = TrackingSession(cfg)
+    sess = TrackingSession(cfg, device="cpu")
     seq = jsyn.SyntheticSequence(3, cam)
     for ts, d, c in seq:
         sess.process_frame(ts, d, c)
@@ -149,7 +150,7 @@ def test_default_icp_is_42_reductions_per_frame(monkeypatch):
 
 def test_trajectory_export_reset_and_device(tmp_path, frames):
     seq, _ = frames
-    sess = TrackingSession(CFG)
+    sess = TrackingSession(CFG, device="cpu")
     for f in seq[:3]:
         sess.process_frame(*f)
     path = tmp_path / "traj.txt"
@@ -163,6 +164,8 @@ def test_trajectory_export_reset_and_device(tmp_path, frames):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TrackingSession(CFG, device="cuda")
+        with pytest.raises(RuntimeError):
+            TrackingSession(CFG)  # the default device is the card
 
 
 def test_cli_run_synthetic(tmp_path, capsys):
@@ -171,8 +174,9 @@ def test_cli_run_synthetic(tmp_path, capsys):
     from slam_rgbd_tpu_torch.__main__ import main
 
     path = tmp_path / "traj.txt"
-    assert main(["run", "synthetic:3", "--traj", str(path)]) == 0
+    assert main(["run", "synthetic:3", "--traj", str(path), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "frames=3" in out and "lost=0" in out and "ATE RMSE" in out
+    assert "keyframes=1" in out and "map_points=" in out
     ts, T = load_trajectory_tum(str(path))
     assert len(ts) == 3 and np.isfinite(T).all()

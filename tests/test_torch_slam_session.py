@@ -1,0 +1,287 @@
+"""The keyframe and relocalization slice as a whole vs the JAX package.
+
+One 12-frame 160x120 sweep. Keyframes are forced at the same frames on both
+sides, at ground-truth poses, and both sides get the JAX feature stage's
+output (descriptors flip bits under last-bit float differences, so
+everything downstream of them is compared on the same numpy descriptors):
+the JAX `_features_jit` + `_kf_insert_jit` against the port session's
+`_insert_keyframe`. Then the relocalization solve on that map, and
+`SLAMSession(device="cpu")` end to end with its own features.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam_rgbd_tpu.backend.pose_graph import EdgeList as JEdgeList
+from slam_rgbd_tpu.core.config import (
+    CameraIntrinsics, ICPConfig, KeyframeConfig, ORBConfig, SLAMConfig,
+)
+from slam_rgbd_tpu.io import synthetic as jsyn
+from slam_rgbd_tpu.mapping import map as jmap
+from slam_rgbd_tpu.runtime import session as jsess
+from slam_rgbd_tpu_torch import SLAMSession, interop
+from slam_rgbd_tpu_torch.core import se3 as tse3
+from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse, load_trajectory_tum
+from slam_rgbd_tpu_torch.ops import hamming as th
+from slam_rgbd_tpu_torch.runtime import session as tsess
+
+torch.set_num_threads(1)
+
+CAM = CameraIntrinsics(fx=142.6, fy=142.6, cx=79.5, cy=59.5, width=160, height=120)
+CFG = SLAMConfig(
+    camera=CAM,
+    icp=ICPConfig(levels=2, iters=(4, 3), window_px=(4, 2), backend="xla"),
+    orb=ORBConfig(n_features=256),
+    # kf_min_trans 3 cm: a keyframe every few frames of the ~1.3 cm/frame orbit
+    keyframes=KeyframeConfig(max_keyframes=8, max_map_points=1024, kf_min_trans=0.03),
+)
+N = 12
+KF_FRAMES = (0, 3, 6, 9)
+MAP_FIELDS = [f.name for f in dataclasses.fields(tsess.smap.MapState)]
+
+
+@pytest.fixture(scope="module")
+def frames():
+    gt = jsyn.orbit_trajectory(N, sweep=True)
+    out = []
+    for i, p in enumerate(gt):
+        d, c = jsyn.render_frame(jnp.asarray(p), CAM)
+        out.append((i / 30.0, np.array(d), np.array(c)))
+    rel = np.linalg.inv(gt[0]) @ gt  # poses in the first camera's frame
+    return out, gt, rel.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_keyframes(frames):
+    """The reference: features + insert at the forced frames, no backend
+    pass. -> per keyframe (features as numpy, map, edges, n_edges, last_kf_T)."""
+    seq, _, rel = frames
+    m = jmap.empty_map(CFG.keyframes, CFG.orb.n_features)
+    edges, n_edges = JEdgeList.empty(4 * CFG.keyframes.max_keyframes), jnp.int32(0)
+    steps = []
+    for k, i in enumerate(KF_FRAMES):
+        ts, d, c = seq[i]
+        kp, desc, pts, ok = jsess._features_jit(jnp.asarray(d), jnp.asarray(c), CFG.orb, CAM)
+        m, edges, n_edges, last_kf_T, _ = jsess._kf_insert_jit(
+            m, edges, n_edges, kp.uv, desc.signs, pts, ok, jnp.asarray(rel[i]),
+            jnp.float32(ts), np.int32(k - 1), np.int32(k), CFG, "xla")
+        steps.append(dict(kp=kp, desc=desc, pts=np.asarray(pts), ok=np.asarray(ok),
+                          map=m, edges=edges, n_edges=int(n_edges),
+                          last_kf_T=np.asarray(last_kf_T)))
+    return steps
+
+
+def _jax_features_on(sess, step):
+    """Make the port session's feature stage return the JAX run's output."""
+    out = (interop.keypoints_from_numpy(step["kp"]),
+           interop.descriptors_from_numpy(step["desc"]),
+           torch.tensor(step["pts"]), torch.tensor(step["ok"]))
+    sess._features = lambda depth, rgb: out
+
+
+def _assert_state_equal(sess, step):
+    got = interop.map_to_numpy(sess.map)
+    for name in MAP_FIELDS:
+        want = np.asarray(getattr(step["map"], name))
+        assert got[name].dtype == want.dtype, name
+        if want.dtype == np.float32:
+            np.testing.assert_allclose(got[name], want, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], want, err_msg=name)
+    edges = interop.edges_to_numpy(sess.edges)
+    for name, g in edges.items():
+        want = np.asarray(getattr(step["edges"], name))
+        if want.dtype == np.float32:
+            np.testing.assert_allclose(g, want, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, want, err_msg=name)
+    assert int(sess.n_edges) == step["n_edges"]
+    np.testing.assert_allclose(sess.last_kf_T.numpy(), step["last_kf_T"], atol=1e-6)
+
+
+def test_keyframe_slice_matches_kf_insert_jit(frames, jax_keyframes):
+    """Map fields, edges and last_kf_T after every forced keyframe: integers
+    and masks exactly, floats to 1e-6. The association runs for real on both
+    sides (XLA branch there, plain gated match here)."""
+    seq, _, rel = frames
+    sess = SLAMSession(CFG, device="cpu")
+    for k, i in enumerate(KF_FRAMES):
+        ts, d, c = seq[i]
+        _jax_features_on(sess, jax_keyframes[k])
+        sess._insert_keyframe(ts, sess._upload(d), sess._upload(c), torch.tensor(rel[i]))
+        _assert_state_equal(sess, jax_keyframes[k])
+    last = jax_keyframes[-1]["map"]
+    assert sess.state.keyframes == len(KF_FRAMES) == int(last.n_kf)
+    # the association really matched: later keyframes reobserve points
+    assert int(np.asarray(last.pt_nobs).max()) >= 3
+    assert int(sess.n_edges) == len(KF_FRAMES) - 1
+    ts_kf, T_kf = sess.keyframe_poses()
+    np.testing.assert_allclose(ts_kf, [seq[i][0] for i in KF_FRAMES], atol=1e-6)
+    np.testing.assert_allclose(T_kf, rel[list(KF_FRAMES)], atol=1e-6)
+    assert sess.map_point_count() == int(jmap.map_point_count(last))
+
+
+def test_state_from_numpy_carries_the_map(frames, jax_keyframes):
+    """The JAX map and edges after three keyframes loaded into a fresh port
+    session: the fourth insert lands on the JAX state."""
+    seq, _, rel = frames
+    prev = jax_keyframes[2]
+    sess = SLAMSession(CFG, device="cpu")
+    eye = np.eye(4, dtype=np.float32)
+    interop.state_from_numpy(
+        sess, T_world=rel[8], motion=eye, last_kf_T=prev["last_kf_T"],
+        map=prev["map"], edges=prev["edges"], n_edges=prev["n_edges"])
+    assert sess.state.keyframes == 3 and sess.last_kf_idx == 2
+    ts, d, c = seq[KF_FRAMES[3]]
+    _jax_features_on(sess, jax_keyframes[3])
+    sess._insert_keyframe(ts, sess._upload(d), sess._upload(c), torch.tensor(rel[KF_FRAMES[3]]))
+    _assert_state_equal(sess, jax_keyframes[3])
+
+
+@pytest.mark.parametrize("frame_i", [4, 7])
+def test_reloc_matches_reloc_jit(frames, jax_keyframes, frame_i):
+    """The relocalization solve on the same map and descriptors, from an
+    estimate off by 5 cm / 2 deg: both accept, inliers agree (+-2: other
+    minimal triples, a residual on the threshold) and T to 1e-4."""
+    seq, _, rel = frames
+    ts, d, c = seq[frame_i]
+    kp, desc, pts, ok = jsess._features_jit(jnp.asarray(d), jnp.asarray(c), CFG.orb, CAM)
+    off = np.asarray(tse3.exp(torch.tensor([0.05, 0.0, 0.0, 0.0, 0.035, 0.0])))
+    T_est = rel[frame_i] @ off
+    m_j = jax_keyframes[-1]["map"]
+    Tj, Cj, sj = jsess._reloc_jit(m_j, desc.signs, ok, pts, jnp.asarray(T_est), CFG, "xla")
+    Tt, Ct, st = tsess._reloc(
+        interop.map_from_numpy(m_j), torch.tensor(np.asarray(desc.signs)),
+        torch.tensor(np.asarray(ok)), torch.tensor(np.asarray(pts)),
+        torch.tensor(T_est), CFG)
+    sj, st = np.asarray(sj), st.numpy()
+    assert sj[0] == st[0] == 1.0
+    assert abs(sj[1] - st[1]) <= 2 and sj[2] == st[2] > 20
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
+    np.testing.assert_allclose(Ct.numpy(), np.asarray(Cj), atol=1e-4)
+    # and it really relocalizes: within 2 cm of the true pose
+    assert np.linalg.norm(Tt.numpy()[:3, 3] - rel[frame_i][:3, 3]) < 0.02
+
+
+@pytest.fixture(scope="module")
+def cpu_session(frames):
+    seq, _, _ = frames
+    sess = SLAMSession(CFG, device="cpu")
+    for f in seq:
+        sess.process_frame(*f)
+    sess.flush_pipeline()
+    return sess
+
+
+def test_session_end_to_end_on_cpu(frames, cpu_session):
+    seq, gt, _ = frames
+    sess = cpu_session
+    assert sess.state.frames == N and sess.state.lost == 0
+    assert sess.state.keyframes > 1 and sess.state.keyframes == sess._n_kf_host
+    assert 0 < sess.map_point_count() < CFG.keyframes.max_map_points
+    assert int(sess.map.pt_dropped) == 0 and int(sess.map.n_kf) == sess.state.keyframes
+    assert int(sess.n_edges) == sess.state.keyframes - 1
+    assert th.gated_match.launches == 0 and th.hamming_top2.launches == 0  # CPU: plain
+    ts, T = sess.poses()
+    assert T.shape == (N, 4, 4) and np.isfinite(T).all()
+    # no backend moves a keyframe yet: re-anchoring returns the tracked poses
+    raw = sess._traj_T[:N].numpy()
+    np.testing.assert_allclose(T, raw, atol=1e-5)
+    assert ate_rmse(T, gt)[0] < 0.01
+    kf_flags = [s.is_keyframe for s in sess.stats]
+    assert sum(kf_flags) == sess.state.keyframes and kf_flags[0]
+    # later keyframes reobserve the map
+    assert int(sess.map.pt_nobs.max()) >= 2
+
+
+def test_keyframe_trajectory_export(tmp_path, cpu_session):
+    sess = cpu_session
+    path = tmp_path / "kf.txt"
+    sess.save_keyframe_trajectory(str(path))
+    ts, T = load_trajectory_tum(str(path))
+    ts_kf, T_kf = sess.keyframe_poses()
+    assert len(ts) == sess.state.keyframes
+    np.testing.assert_allclose(ts, ts_kf, atol=1e-6)
+    np.testing.assert_allclose(T, T_kf, atol=1e-5)
+
+
+@pytest.mark.parametrize("frame_i", [5, 10])
+def test_relocalize_recovers_offset_estimate(frames, cpu_session, frame_i):
+    """`_relocalize` from an estimate off by 5 cm / 2 deg comes back within
+    2 cm of the session's own pose of that frame."""
+    seq, _, _ = frames
+    sess = cpu_session
+    own = sess.poses()[1][frame_i]
+    off = tse3.exp(torch.tensor([0.05, 0.0, 0.0, 0.0, 0.035, 0.0]))
+    T_est = torch.tensor(own) @ off
+    T_fixed, C = sess._relocalize(seq[frame_i][1], seq[frame_i][2], T_est=T_est)
+    assert T_fixed is not None
+    assert np.linalg.norm(T_fixed.numpy()[:3, 3] - own[:3, 3]) < 0.02
+    np.testing.assert_allclose((C @ T_est).numpy(), T_fixed.numpy(), atol=1e-5)
+
+
+def test_blanked_depth_frame_is_lost_not_fatal(frames):
+    """A frame without depth: lost >= 1, a relocalization attempt, no crash,
+    and tracking is back on the frames after it."""
+    seq, _, _ = frames
+    sess = SLAMSession(CFG, device="cpu")
+    for i, (ts, d, c) in enumerate(seq[:8]):
+        sess.process_frame(ts, np.zeros_like(d) if i == 4 else d, c)
+    sess.flush_pipeline()
+    assert sess.state.frames == 8 and sess.state.lost >= 1
+    assert not sess.stats[4].is_keyframe
+    assert sess.stats[-1].tracking_ok
+    assert np.isfinite(sess.poses()[1]).all()
+
+
+def test_relocalization_corrects_the_trajectory(frames, cpu_session):
+    """A lost frame that relocalizes: the correction lands on the live pose,
+    the logged poses since the lost frame and the pending estimates."""
+    seq, _, _ = frames
+    sess = SLAMSession(CFG, device="cpu")
+    for f in seq[:7]:
+        sess.process_frame(*f)
+    sess.flush_pipeline()
+    good = sess.T_world.clone()
+    off = tse3.exp(torch.tensor([0.05, 0.0, 0.0, 0.0, 0.035, 0.0]))
+    bad = good @ off
+    sess.T_world = bad
+    sess._traj_T[6] = bad
+    entry = tsess._PendingFrame(
+        summary=torch.tensor([0.1, 0.0, 1.0, 0.0]), event=None, st=sess.stats[6],
+        ts=seq[6][0], depth_raw=sess._upload(seq[6][1]), rgb=sess._upload(seq[6][2]),
+        traj_i=6, frame_i=6, T=bad)
+    sess._resolve_entry(entry)
+    assert sess.state.lost == 1 and sess.state.relocalized == 1
+    assert sess.stats[6].tracking_ok
+    assert np.linalg.norm((sess.T_world - good).numpy()[:3, 3]) < 0.02
+    assert np.linalg.norm((sess._traj_T[6] - good).numpy()[:3, 3]) < 0.02
+    np.testing.assert_allclose(sess._traj_T[5].numpy(), sess.poses()[1][5], atol=1e-5)
+
+
+def test_warmup_leaves_a_fresh_session():
+    small = dataclasses.replace(
+        CFG, camera=CameraIntrinsics(fx=114.1, fy=114.1, cx=63.5, cy=47.5,
+                                     width=128, height=96))
+    sess = SLAMSession(small, device="cpu")
+    sess.warmup()
+    assert sess.state.frames == 0 and sess.state.keyframes == 0
+    assert sess.map_point_count() == 0 and len(sess.poses()[0]) == 0
+
+
+def test_default_device_is_cuda_and_raises_without_one():
+    from slam_rgbd_tpu_torch.__main__ import main
+    from slam_rgbd_tpu_torch.io.synthetic import SyntheticSequence
+
+    if torch.cuda.is_available():
+        pytest.skip("checks a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLAMSession(CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticSequence(2, CAM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["run", "synthetic:2"])
