@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the port's SLAM session once on one CUDA card and check it.
+"""Drive the port's SLAM sessions once on one CUDA card and check them.
 
-    python3 chip_smoke.py [--control]
+    python3 chip_smoke.py [--control] [--profile]
 
 Run from the root of a checkout. `--control` adds two tracking-only sweeps
 to the main phase, one before and one after the measured sweep, to show how
-far the host's speed moves within the process. Phases, each fatal on failure:
+far the host's speed moves within the process. `--profile` adds a
+`torch.profiler` trace of a few tracked batch steps at B = 4 and B = 1 to the
+batch phase (device operations a step, their device time, the card's busy
+share). Phases, each fatal on failure:
 
   1. device  - a CUDA card is required; prints its name and power limit.
   2. build   - compiles the kernels from `slam_rgbd_tpu_torch/ops/csrc/`
@@ -19,6 +22,10 @@ far the host's speed moves within the process. Phases, each fatal on failure:
                outputs exactly equal. Median device times of kernel and
                plain version over 50 calls (CUDA events), and the least time
                the card could take for the same work.
+               `gn_reduce_batched` with 8, 4 and 1 problems (frame pairs at
+               different poses) at the same three shapes: equal to its plain
+               version, two launches identical, and each problem identical
+               bit for bit to a single `gn_reduce` launch on its slice.
   4. small   - a 160x120 sequence through the session on the card and on the
                CPU (plain path): poses, keyframes and map agree.
   5. main    - a 240-frame 640x480 out-and-back orbit (the JAX package's
@@ -35,6 +42,18 @@ far the host's speed moves within the process. Phases, each fatal on failure:
                depth blanked outside a central window: frames are lost and
                relocalized against the map (two `hamming_top2` launches a
                try), tracking comes back, ATE within 5 cm.
+  8. small batch - two different 160x120 sequences through
+               `BatchSession` on the card and on the CPU: poses, keyframes
+               and maps agree.
+  9. batch   - `BatchSession(cfg, 4)` at full width over 120 frames of
+               640x480 under injected odometry drift (the JAX bench's loop
+               leg): sequences 0 and 1 the out-and-back sweep, 2 and 3
+               forward orbits. 42 `gn_reduce_batched` launches a tracked
+               step and no single `gn_reduce` launch, one `gated_match`
+               launch an insert with a map, `hamming_top2` launches from
+               loop verification, all poses finite, the sweep sequences
+               close a loop each, and their ATE is below that of the same
+               sweep with the loop search off.
 
 The line before the last holds the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without it.
@@ -60,6 +79,12 @@ TIMING_LAUNCHES = 50
 RELOC_FRAME = 120
 LOST_FRAMES = 12  # the lost phase: a short run with one damaged frame
 LOST_AT = 6
+BATCH_B = 4
+BATCH_FRAMES = 120
+KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
+# the loop leg of the JAX package's bench: a constant twist composed onto
+# every tracked relative pose, denser keyframes, a shorter loop interval
+LOOP_LEG_DRIFT = (0.006, 0.0, 0.003, 0.0, 0.003, 0.0)
 MATCHED_SHARE_MIN = 0.5  # of a later keyframe's valid keypoints, see main_phase
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
@@ -227,6 +252,91 @@ def gn_kernel_phase(cfg) -> dict:
         print(f"  bound {b_ms:.4f} ms by {b_by}")
         rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
+    return {"max_err": worst, "rows": rows}
+
+
+def gn_batched_kernel_phase(cfg) -> dict:
+    """gn_reduce_batched vs its plain version and vs single gn_reduce
+    launches, at the tracker's three level shapes, for frame pairs of the
+    sweep at eight different poses."""
+    phase("kernels: gn_reduce_batched")
+    from slam_rgbd_tpu_torch.core import camera
+    from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
+    from slam_rgbd_tpu_torch.odometry import icp
+    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+
+    dev = torch.device("cuda", 0)
+    cam, icfg = cfg.camera, cfg.icp
+    n_max = max(KERNEL_B)
+    gt = orbit_trajectory(N_FRAMES, sweep=True)
+    first = [i * (N_FRAMES // n_max) for i in range(n_max)]  # pairs (i, i + 1)
+
+    def pyramid(idx):
+        depth, rgb = (torch.stack(x) for x in zip(
+            *(render_frame(gt[i], cam, device=dev) for i in idx)))
+        return camera.build_frame_pyramid(depth, cam, levels=icfg.levels, rgb=rgb)
+
+    tgt_pyr = pyramid(first)
+    src_pyr = pyramid([i + 1 for i in first])
+    T = torch.from_numpy(np.stack(
+        [np.linalg.inv(gt[i]) @ gt[i + 1] for i in first]).astype(np.float32)).to(dev)
+    worst, rows = 0.0, []
+    for k in range(icfg.levels - 1, -1, -1):
+        lcam = cam.scaled(2.0 ** k)
+        _, radius = icp._level_schedule(icfg, icfg.levels, k)
+        src = icp.level_planes(src_pyr[k])[:, : tg.SRC_CHANNELS].contiguous()
+        tgt = icp.level_planes(tgt_pyr[k])
+        _, up, vp, _ = icp._project_level(T, src_pyr[k]["vertices"], lcam)
+        mu = icp.flow_shift(up, vp, lcam.height, lcam.width)
+        shape = f"{lcam.height}x{lcam.width}/R{radius}"
+        n_px = lcam.height * lcam.width
+        for n_b in KERNEL_B:
+            args = (T[:n_b].contiguous(), mu[:n_b].contiguous(), src[:n_b].contiguous(),
+                    tgt[:n_b].contiguous(), lcam, icfg, radius)
+            k1 = tg.gn_reduce_batched(*args)
+            k2 = tg.gn_reduce_batched(*args)
+            singles = [tg.gn_reduce(*(a[b] for a in args[:4]), lcam, icfg, radius)
+                       for b in range(n_b)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                  f"{shape} B={n_b}: two batched launches differ")
+            check(all(torch.equal(a[b], c) for b in range(n_b)
+                      for a, c in zip(k1, singles[b])),
+                  f"{shape} B={n_b}: a problem differs from its single launch")
+            ms, busy = device_ms(lambda: tg.gn_reduce_batched(*args))
+            # each problem's planes, pose and flow read once, 44 values written
+            b_ms, b_by = bound(
+                4.0 * n_b * ((tg.SRC_CHANNELS + tg.TGT_CHANNELS) * n_px + 18 + 44),
+                f32_ops=300.0 * n_b * n_px)
+            row = {"shape": shape, "B": n_b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+            if n_b in (n_max, BATCH_B):
+                ref = tg.gn_reduce_batched_reference(*args)
+                torch.cuda.synchronize()
+                H1, g1, i1, s1 = (x.cpu().numpy() for x in k1)
+                H0, g0, i0, s0 = (x.cpu().numpy() for x in ref)
+                h_scale = np.maximum(1.0, np.abs(H0).max(axis=(1, 2)))
+                g_scale = np.maximum(1.0, np.abs(g0).max(axis=1))
+                err_h = float((np.abs(H1 - H0).max(axis=(1, 2)) / h_scale).max())
+                err_g = float((np.abs(g1 - g0).max(axis=1) / g_scale).max())
+                err_s = float((np.abs(s1 - s0) / np.maximum(np.abs(s0), 1e-30)).max())
+                print(f"{shape} B={n_b}: mu={mu[:n_b].tolist()} inliers {i1.tolist()} "
+                      f"(plain: equal {bool((i1 == i0).all())}); H err/scale {err_h:.2e} "
+                      f"(<= 2e-6), g err/scale {err_g:.2e} (<= 5e-5), sq_sum rel err "
+                      f"{err_s:.2e} (<= 1e-4); two launches identical; every problem "
+                      f"bit-identical to its single gn_reduce launch")
+                check(err_h <= 2e-6 and err_g <= 5e-5 and err_s <= 1e-4,
+                      f"{shape} B={n_b}: kernel disagrees with plain version")
+                check(bool((i1 == i0).all()) and int(i1.min()) > 1000,
+                      f"{shape} B={n_b}: inliers {i1.tolist()} vs plain {i0.tolist()}")
+                check(len(set(i1.tolist())) == n_b, "the problems do not differ")
+                worst = max(worst, err_h, err_g)
+                row["plain_ms"], _ = device_ms(
+                    lambda: tg.gn_reduce_batched_reference(*args), n=5)
+            print(f"  {shape} B={n_b}: device median of {TIMING_LAUNCHES}: kernel "
+                  f"{ms:.4f} ms (queue busy share {busy:.3f})"
+                  + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else "")
+                  + f"; bound {b_ms:.4f} ms by {b_by}")
+            rows.append(row)
     return {"max_err": worst, "rows": rows}
 
 
@@ -629,37 +739,335 @@ def reloc_phase(run: dict) -> dict:
     return {"launches": launches, "ms": times[1]}
 
 
+def _batch_frames(seqs_gt, cam, dev):
+    """Per step (depth (B, H, W), rgb (B, H, W, 3)) on the card; sequences
+    that share a trajectory share their rendered frames."""
+    from slam_rgbd_tpu_torch.io.synthetic import render_frame
+
+    rendered = {}
+    for gt in seqs_gt:
+        if id(gt) not in rendered:
+            rendered[id(gt)] = [render_frame(p, cam, device=dev) for p in gt]
+    n = len(seqs_gt[0])
+    return [tuple(torch.stack([rendered[id(gt)][i][c] for gt in seqs_gt])
+                  for c in (0, 1)) for i in range(n)]
+
+
+def small_batch_phase(cfg) -> None:
+    """Two different short sequences through BatchSession on the card and on
+    the CPU (plain path)."""
+    phase("small batch")
+    import dataclasses
+
+    from slam_rgbd_tpu_torch import BatchSession
+    from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory
+
+    # the first LU solve of a process loads a solver library: outside every
+    # timed window, and timed here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.linalg.solve_ex(torch.eye(96, device="cuda") * 2.0, torch.ones(96, 1, device="cuda"))
+    torch.cuda.synchronize()
+    print(f"first torch.linalg.solve_ex of the process: "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms (host clock, synchronised)")
+
+    cam = cfg.camera.scaled(4.0)  # 160x120
+    small = dataclasses.replace(
+        cfg, camera=cam,
+        orb=dataclasses.replace(cfg.orb, n_features=256, n_levels=4),
+        keyframes=dataclasses.replace(cfg.keyframes, kf_min_trans=0.03,
+                                      max_keyframes=16, max_map_points=2048),
+        ba=dataclasses.replace(cfg.ba, window=4, iters=3, max_points_per_window=512))
+    gts = [orbit_trajectory(SMALL_FRAMES, step_t=0.012 + 0.004 * b,
+                            step_r=0.01 + 0.002 * b, seed=b) for b in range(2)]
+    frames = _batch_frames(gts, cam, torch.device("cuda", 0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bs = BatchSession(small, 2, device=dev)
+        for i, (depth, rgb) in enumerate(frames):
+            bs.process_frames(i / cam.fps, depth, rgb)
+        poses = bs.poses()[1]
+        check(np.isfinite(poses).all(), f"{dev}: non-finite poses")
+        out[dev] = (poses, bs.keyframe_counts, bs.map_point_counts(), bs.state.lost)
+    (p_cpu, kf_cpu, n_cpu, lost_cpu), (p_gpu, kf_gpu, n_gpu, lost_gpu) = out["cpu"], out["cuda"]
+    err = float(np.abs(p_gpu - p_cpu).max())
+    print(f"160x120, B=2, {SMALL_FRAMES} frames: card vs CPU max pose diff {err:.2e} "
+          f"(<= 1e-3: the float32 sums of the tracked frames and of the BA "
+          f"run in another order on the card); keyframes "
+          f"{kf_gpu.tolist()} / {kf_cpu.tolist()}, map points {n_gpu.tolist()} / "
+          f"{n_cpu.tolist()} (within 5%), lost {lost_gpu.tolist()} / {lost_cpu.tolist()}")
+    check(err <= 1e-3, "card and CPU batch sessions disagree")
+    check((kf_gpu == kf_cpu).all() and (kf_cpu >= 3).all(),
+          "card and CPU batch sessions insert other keyframes")
+    check((np.abs(n_gpu - n_cpu) <= 0.05 * n_cpu).all(), "map sizes differ")
+    check(not lost_gpu.any() and not lost_cpu.any(), "frames lost")
+
+
+class _Stopwatch:
+    """Host-clock times (synchronised) of every call of some functions,
+    swapped in for the duration of a `with` block."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, function name)
+        self.ms = {name: [] for _, name in targets}
+
+    def __enter__(self):
+        self._real = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+        for mod, name, fn in self._real:
+            setattr(mod, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._real:
+            setattr(mod, name, fn)
+
+    def _timed(self, name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def report(self, name: str) -> str:
+        v = self.ms[name]
+        return (f"{name} {len(v)} calls, median {np.median(v):.1f} ms, max "
+                f"{max(v):.1f} ms" if v else f"{name} 0 calls")
+
+
+def _batch_run(cfg, frames, n_seq: int):
+    """Drive a BatchSession over the frames -> (session, device ms of every
+    step from CUDA events, which steps inserted a keyframe)."""
+    from slam_rgbd_tpu_torch import BatchSession
+
+    bs = BatchSession(cfg, n_seq)  # the default device: the card
+    check(bs.device.type == "cuda", f"default device is {bs.device}")
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(frames) + 1)]
+    inserted = []
+    marks[0].record()
+    for i, (depth, rgb) in enumerate(frames):
+        before = bs.keyframe_counts.sum()
+        bs.process_frames(i / cfg.camera.fps, depth[:n_seq], rgb[:n_seq])
+        marks[i + 1].record()
+        inserted.append(bs.keyframe_counts.sum() > before)
+    torch.cuda.synchronize()
+    ms = np.array([marks[i].elapsed_time(marks[i + 1]) for i in range(len(frames))])
+    return bs, ms, np.array(inserted)
+
+
+def _profile_tracked_steps(cfg, frames, n_seq: int, n_steps: int = 5) -> None:
+    """Trace `n_steps` tracked steps (keyframe thresholds out of reach, so
+    no step inserts) of a BatchSession of `n_seq` sequences and print what
+    the device did a step."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_rgbd_tpu_torch import BatchSession
+
+    never = dataclasses.replace(cfg.keyframes, kf_min_trans=1e9, kf_min_rot_deg=1e9,
+                                kf_min_inlier_ratio=0.0)
+    bs = BatchSession(dataclasses.replace(cfg, keyframes=never), n_seq)
+    step = lambda i: bs.process_frames(i / cfg.camera.fps, frames[i][0][:n_seq],
+                                       frames[i][1][:n_seq])
+    for i in range(STEADY_FROM):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STEADY_FROM, STEADY_FROM + n_steps):
+        step(i)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(STEADY_FROM + n_steps, STEADY_FROM + 2 * n_steps):
+            step(i)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    dev_us, dev_ops, launches = 0.0, 0, 0
+    for ev in prof.key_averages():
+        # device-side events (kernels, copies, fills) only: a host-side op
+        # event carries its kernels' time a second time
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            dev_us += ev.self_cuda_time_total if us is None else us
+            dev_ops += ev.count
+        elif ev.key == "cudaLaunchKernel":
+            launches += ev.count
+    check(dev_us > 0, "the profiler recorded no device time")
+    print(f"profile, B={n_seq}, {n_steps} tracked steps: {dev_ops / n_steps:.0f} device "
+          f"operations a step ({launches / n_steps:.0f} cudaLaunchKernel), device time "
+          f"{dev_us / 1e3 / n_steps:.3f} ms a step, step {traced_ms:.2f} ms under the "
+          f"profiler ({plain_ms:.2f} ms without): device busy share "
+          f"{dev_us / 1e3 / n_steps / traced_ms:.4f}")
+
+
+def batch_phase(cfg, with_profile: bool = False) -> dict:
+    """BatchSession at full width under the loop leg's settings."""
+    phase("batch")
+    import dataclasses
+
+    from slam_rgbd_tpu_torch.backend import pose_graph as pg_mod
+    from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory
+    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+    from slam_rgbd_tpu_torch.ops import hamming as th
+    from slam_rgbd_tpu_torch.runtime import batch_session as tbs
+
+    dev = torch.device("cuda", 0)
+    cam = cfg.camera
+    leg = dataclasses.replace(
+        cfg,
+        icp=dataclasses.replace(cfg.icp, drift_xi=LOOP_LEG_DRIFT),
+        keyframes=dataclasses.replace(cfg.keyframes, kf_min_trans=0.06),
+        ba=dataclasses.replace(cfg.ba, loop_min_interval=5, loop_cooldown_kf=3))
+    t0 = time.perf_counter()
+    sweep = orbit_trajectory(BATCH_FRAMES, sweep=True)
+    gts = [sweep, sweep] + [
+        orbit_trajectory(BATCH_FRAMES, step_t=0.012 + 0.004 * b,
+                         step_r=0.01 + 0.002 * b, seed=b) for b in (2, 3)]
+    frames = _batch_frames(gts, cam, dev)
+    torch.cuda.synchronize()
+    print(f"rendered 3 x {BATCH_FRAMES} frames {cam.width}x{cam.height} in "
+          f"{time.perf_counter() - t0:.1f} s (sequences 0 and 1 share the sweep)")
+
+    counters = (tg.gn_reduce_batched, tg.gn_reduce, th.gated_match, th.hamming_top2)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    watch = _Stopwatch((tbs, "_batch_ba"), (tbs, "_batch_loop_close"),
+                       (pg_mod, "optimize_pose_graph"), (tbs, "_batch_features"))
+    # how far each BA pass moved each sequence's live pose (the rigid
+    # correction of its newest keyframe), kept on the card until the end
+    ba_moves = []
+    real_ba = tbs._batch_ba
+
+    def ba_probe(maps, T_world, do_ba, cfg):
+        out = real_ba(maps, T_world, do_ba, cfg)
+        ba_moves.append(torch.linalg.norm(out[1][:, :3, 3] - T_world[:, :3, 3], dim=-1))
+        return out
+
+    tbs._batch_ba = ba_probe
+    try:
+        with watch:
+            bs, ms, inserted = _batch_run(leg, frames, BATCH_B)
+    finally:
+        tbs._batch_ba = real_ba
+    ba_move_cm = (100 * torch.stack(ba_moves).amax(dim=0)).tolist()
+    batched, single, gated, top2 = (c.launches for c in counters)
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    _, est = bs.poses()
+    gt = np.stack(gts)
+    ate = bs.ate_per_sequence(gt)
+    kf, n_pt = bs.keyframe_counts, bs.map_point_counts()
+    steady = slice(STEADY_FROM, None)
+    step_ms, ins = ms[steady], inserted[steady]
+    tracked, with_insert = step_ms[~ins], step_ms[ins]
+    steps_s = len(step_ms) / (step_ms.sum() / 1e3)
+    print(f"gn_reduce_batched launches {batched} (expected 42 x {BATCH_FRAMES - 1} = "
+          f"{42 * (BATCH_FRAMES - 1)}), single gn_reduce launches {single} (0), "
+          f"gated_match launches {gated} (one an insert with a map: "
+          f"{int((kf - 1).sum())}), hamming_top2 launches {top2} (two a loop "
+          f"verification or relocalization)")
+    print(f"keyframes {kf.tolist()}, map points {n_pt.tolist()}, loops "
+          f"{bs.state.loops.tolist()}, lost {bs.state.lost.tolist()}, relocalized "
+          f"{bs.state.relocalized.tolist()}, edges {[int(n) for n in bs.n_edges]}, "
+          f"peak device memory of the run {peak_mb:.1f} MiB")
+    twin_diff = float(np.abs(est[0] - est[1]).max())
+    print(f"per-sequence ATE {[round(100 * float(a), 3) for a in ate]} cm; sequences 0 "
+          f"and 1 (the same frames) differ by at most {twin_diff:.2e} in their poses "
+          f"(<= 1e-4: every sum of the path has a fixed order)")
+    print(f"steady state (steps {STEADY_FROM}-{BATCH_FRAMES - 1}), B={BATCH_B}: "
+          f"{steps_s:.2f} batch steps/s = {BATCH_B * steps_s:.2f} sequence-frames/s; "
+          f"tracked steps ({len(tracked)}): p50 {np.percentile(tracked, 50):.3f} ms, p99 "
+          f"{np.percentile(tracked, 99):.3f} ms; steps with an insert "
+          f"({len(with_insert)}): p50 {np.percentile(with_insert, 50):.3f} ms, p99 "
+          f"{np.percentile(with_insert, 99):.3f} ms")
+    print(f"largest move of a sequence's live pose by one BA pass "
+          f"{[round(x, 2) for x in ba_move_cm]} cm")
+    print("host clock, synchronised: " + "; ".join(
+        watch.report(n) for n in ("_batch_features", "_batch_ba", "_batch_loop_close",
+                                  "optimize_pose_graph")))
+
+    check(batched == 42 * (BATCH_FRAMES - 1),
+          "the batch session did not run the batched kernel 42x a tracked step")
+    check(single == 0, f"{single} single gn_reduce launches from the batch session")
+    check(gated == int((kf - 1).sum()), f"{gated} gated_match launches for keyframes {kf}")
+    check(top2 > 0 and top2 % 2 == 0, f"{top2} hamming_top2 launches")
+    check(est.shape == (BATCH_B, BATCH_FRAMES, 4, 4) and np.isfinite(est).all(),
+          f"poses: shape {est.shape} or non-finite")
+    check(twin_diff <= 1e-4, "two sequences fed the same frames ended apart")
+    check(bs.state.loops[0] >= 1 and bs.state.loops[1] >= 1,
+          f"loops closed {bs.state.loops.tolist()}: a sweep sequence closed none")
+    check(len({(int(kf[b]), int(n_pt[b])) for b in (0, 2, 3)}) == 3,
+          "unlike sequences ended with the same keyframes and map points")
+    check((kf >= 3).all() and (n_pt > 100).all(), f"keyframes {kf}, map points {n_pt}")
+
+    # the same sweep with the loop search off (no candidate can score 2.0)
+    off_cfg = dataclasses.replace(
+        leg, ba=dataclasses.replace(leg.ba, loop_min_score=2.0))
+    off, off_ms, _ = _batch_run(off_cfg, frames, 1)
+    ate_off = float(off.ate_per_sequence(gt[:1])[0])
+    print(f"sweep with loops off, B=1: ATE {100 * ate_off:.3f} cm, loops "
+          f"{off.state.loops.tolist()}, keyframes {off.keyframe_counts.tolist()}; B=1 "
+          f"steps p50 {np.percentile(off_ms[steady], 50):.3f} ms; with loops on ATE "
+          f"{100 * float(ate[0]):.3f} / {100 * float(ate[1]):.3f} cm")
+    check(off.state.loops[0] == 0, "a loop closed with the search off")
+    check(ate[0] < ate_off and ate[1] < ate_off,
+          f"ATE with loops on {ate[:2]} not below loops off {ate_off}")
+    if with_profile:
+        for n_seq in (BATCH_B, 1):
+            _profile_tracked_steps(leg, frames, n_seq)
+    return {"batched": batched, "gated": gated, "top2": top2}
+
+
 def main() -> int:
-    with_control = sys.argv[1:] == ["--control"]
-    check(with_control or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    flags = set(sys.argv[1:])
+    check(flags <= {"--control", "--profile"}, f"unknown arguments {sys.argv[1:]}")
+    with_control, with_profile = "--control" in flags, "--profile" in flags
     card = device_phase()
     from slam_rgbd_tpu_torch import astra_default_config
 
     cfg = astra_default_config()
     build_phase()
     gn = gn_kernel_phase(cfg)
+    gnb = gn_batched_kernel_phase(cfg)
     ham = hamming_kernel_phase(cfg)
     small_phase(cfg)
     run = main_phase(cfg, with_control)
     reloc = reloc_phase(run)
     lost = lost_phase(cfg, run)
-    full = next(r for r in gn["rows"] if r["shape"].startswith(
-        f"{cfg.camera.height}x{cfg.camera.width}"))
+    main_launches, gated_launches = run["launches"], run["gated_launches"]
+    del run  # the sweep's frames and map
+    torch.cuda.empty_cache()
+    small_batch_phase(cfg)
+    batch = batch_phase(cfg, with_profile)
+    full_res = f"{cfg.camera.height}x{cfg.camera.width}"
+    full = next(r for r in gn["rows"] if r["shape"].startswith(full_res))
+    # the batch phase's shape: BATCH_B problems at full resolution
+    full_b = next(r for r in gnb["rows"]
+                  if r["shape"].startswith(full_res) and r["B"] == BATCH_B)
     csrc = "slam_rgbd_tpu_torch/ops/csrc/"
     timing = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         dict(name="gn_reduce", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:413",
-             launches=run["launches"], max_abs_err=gn["max_err"],
+             launches=main_launches, max_abs_err=gn["max_err"],
              **{k: full[k] for k in timing}, library_ms=None),
+        dict(name="gn_reduce_batched", route="cuda", source=csrc + "gn_reduce.cu",
+             replaces="slam_rgbd_tpu/ops/icp_pallas.py:493",
+             launches=batch["batched"], max_abs_err=gnb["max_err"],
+             **{k: full_b[k] for k in timing}, library_ms=None),
         dict(name="gated_match", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:291",
-             launches=run["gated_launches"],
+             launches=gated_launches + batch["gated"],
              max_abs_err=ham["gated_match"]["max_abs_err"],
              **{k: ham["gated_match"][k] for k in timing}, library_ms=None),
         dict(name="hamming_top2", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:119",
-             launches=lost["launches"] + reloc["launches"],
+             launches=lost["launches"] + reloc["launches"] + batch["top2"],
              max_abs_err=ham["hamming_top2"]["max_abs_err"],
              **{k: ham["hamming_top2"][k] for k in timing}, library_ms=None),
     ]

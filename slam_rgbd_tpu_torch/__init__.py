@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of slam_rgbd_tpu: tracking, keyframes, relocalization.
+"""PyTorch + CUDA port of slam_rgbd_tpu: tracking, keyframes, relocalization,
+the BA / loop / pose-graph backend and the multi-sequence batch session.
 
 Mirrors the layout and names of `slam_rgbd_tpu` so that each module's
 counterpart is easy to find. It imports nothing of the JAX package and never
@@ -13,6 +14,7 @@ from slam_rgbd_tpu_torch.core.config import (  # noqa: F401
     SLAMConfig,
     astra_default_config,
 )
+from slam_rgbd_tpu_torch.runtime.batch_session import BatchSession  # noqa: F401
 from slam_rgbd_tpu_torch.runtime.session import (  # noqa: F401
     SLAMSession,
     TrackingSession,

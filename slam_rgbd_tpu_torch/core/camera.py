@@ -3,7 +3,8 @@
 Counterpart of `slam_rgbd_tpu/core/camera.py`. Images keep the reference's
 layout: (H, W) planes and (H, W, 3) vertex / normal maps, float32, with
 invalid depth held as 0 and tracked by boolean masks. Every function follows
-its input's device.
+its input's device and takes any number of leading batch dimensions before
+(H, W): a (B, H, W) depth stack gives a pyramid whose leaves lead with B.
 
 Borders follow the reference exactly: the bilateral filter wraps around the
 image (its stencil is a roll), while `normal_map` and `image_gradients` zero
@@ -36,7 +37,7 @@ def pixel_grid(height: int, width: int, device=None):
 
 def backproject(depth_m: torch.Tensor, cam: CameraIntrinsics) -> torch.Tensor:
     """Depth (H, W) metres -> vertex map (H, W, 3); invalid pixels give 0."""
-    h, w = depth_m.shape
+    h, w = depth_m.shape[-2:]
     u, v = pixel_grid(h, w, depth_m.device)
     z = torch.where(valid_depth_mask(depth_m, cam), depth_m, 0.0)
     x = (u - cam.cx) * z / cam.fx
@@ -54,15 +55,15 @@ def normal_map(vertices: torch.Tensor) -> torch.Tensor:
 
     Zero where any stencil vertex is invalid and on the one-pixel border.
     """
-    right = torch.roll(vertices, -1, dims=1)
-    left = torch.roll(vertices, 1, dims=1)
-    down = torch.roll(vertices, -1, dims=0)
-    up = torch.roll(vertices, 1, dims=0)
+    right = torch.roll(vertices, -1, dims=-2)
+    left = torch.roll(vertices, 1, dims=-2)
+    down = torch.roll(vertices, -1, dims=-3)
+    up = torch.roll(vertices, 1, dims=-3)
     n = torch.linalg.cross(right - left, down - up, dim=-1)
     norm = torch.linalg.norm(n, dim=-1, keepdim=True)
     n = n / torch.clamp_min(norm, 1e-12)
     n = n * torch.where(n[..., 2:3] > 0, -1.0, 1.0)
-    h, w = vertices.shape[:2]
+    h, w = vertices.shape[-3:-1]
     valid = (
         (vertices[..., 2] > 0)
         & (right[..., 2] > 0)
@@ -77,18 +78,18 @@ def normal_map(vertices: torch.Tensor) -> torch.Tensor:
 
 def downsample_depth(depth_m: torch.Tensor) -> torch.Tensor:
     """2x halve a depth map, averaging only the valid pixels of each 2x2."""
-    h, w = depth_m.shape
-    d = depth_m.reshape(h // 2, 2, w // 2, 2)
+    h, w = depth_m.shape[-2:]
+    d = depth_m.reshape(depth_m.shape[:-2] + (h // 2, 2, w // 2, 2))
     valid = (d > 0).to(depth_m.dtype)
-    s = torch.sum(d * valid, dim=(1, 3))
-    c = torch.sum(valid, dim=(1, 3))
+    s = torch.sum(d * valid, dim=(-3, -1))
+    c = torch.sum(valid, dim=(-3, -1))
     return torch.where(c > 0, s / torch.clamp_min(c, 1.0), 0.0)
 
 
 def downsample_intensity(img: torch.Tensor) -> torch.Tensor:
     """2x average-pool an intensity image (H, W)."""
-    h, w = img.shape
-    return img.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+    h, w = img.shape[-2:]
+    return img.reshape(img.shape[:-2] + (h // 2, 2, w // 2, 2)).mean(dim=(-3, -1))
 
 
 def bilateral_depth_filter(
@@ -105,9 +106,10 @@ def bilateral_depth_filter(
     Invalid (0) depth neither contributes nor gets filled.
     """
     k = 2 * radius + 1
-    padded = F.pad(depth_m[None, None], (radius,) * 4, mode="circular")[0, 0]
-    # taps[v, u, i, j] = depth[(v + i - r) mod H, (u + j - r) mod W]
-    taps = padded.unfold(0, k, 1).unfold(1, k, 1)
+    h, w = depth_m.shape[-2:]
+    padded = F.pad(depth_m.reshape(-1, 1, h, w), (radius,) * 4, mode="circular")
+    # taps[..., v, u, i, j] = depth[..., (v + i - r) mod H, (u + j - r) mod W]
+    taps = padded.unfold(2, k, 1).unfold(3, k, 1).reshape(depth_m.shape + (k, k))
     off = torch.arange(-radius, radius + 1, device=depth_m.device) ** 2
     w_space = torch.exp(
         -(off[:, None] + off[None, :]).to(torch.float32)
@@ -124,9 +126,9 @@ def bilateral_depth_filter(
 
 def image_gradients(img: torch.Tensor) -> torch.Tensor:
     """Central-difference gradients (H, W, 2) = (d/du, d/dv); zero border."""
-    gx = 0.5 * (torch.roll(img, -1, dims=1) - torch.roll(img, 1, dims=1))
-    gy = 0.5 * (torch.roll(img, -1, dims=0) - torch.roll(img, 1, dims=0))
-    h, w = img.shape
+    gx = 0.5 * (torch.roll(img, -1, dims=-1) - torch.roll(img, 1, dims=-1))
+    gy = 0.5 * (torch.roll(img, -1, dims=-2) - torch.roll(img, 1, dims=-2))
+    h, w = img.shape[-2:]
     return torch.where(
         _interior(h, w, img.device)[..., None], torch.stack([gx, gy], dim=-1), 0.0
     )

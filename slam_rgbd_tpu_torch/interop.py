@@ -139,3 +139,78 @@ def state_from_numpy(session, *, T_world, motion, last_kf_T, prev_pyr=None,
     if edges is not None:
         session.edges = edges_from_numpy(edges, dev)
         session.n_edges = torch.tensor(int(n_edges), dtype=torch.int32, device=dev)
+
+
+def _unstack(cls, src, n_seq: int, device) -> list:
+    """A stacked state of the JAX package (every field with a leading B) ->
+    one `cls` per sequence."""
+    whole = _fields_from(cls, src, device)
+    return [
+        cls(**{f.name: getattr(whole, f.name)[b].clone()
+               for f in dataclasses.fields(cls)})
+        for b in range(n_seq)
+    ]
+
+
+def _stack(items) -> dict:
+    """Per-sequence dataclasses -> one dict of numpy arrays with a leading B."""
+    return {
+        f.name: np.stack([getattr(x, f.name).cpu().numpy() for x in items])
+        for f in dataclasses.fields(type(items[0]))
+    }
+
+
+def batch_state_from_numpy(session, *, maps, edges, n_edges, T_world, motion,
+                           last_kf_T, n_kf, prev_pyr=None, frame_i=0,
+                           last_kf_frame=None, last_loop_kf=None,
+                           lost_streak=None) -> None:
+    """Load the JAX package's batch state into a `BatchSession`: the stacked
+    `MapState` and `EdgeList` (objects or dicts, every field with a leading
+    B), `n_edges` (B,), the (B, 4, 4) poses, optionally the previous frames'
+    pyramid (numpy dicts with a leading B), and the host counters (`n_kf`
+    (B,), frame index, per-sequence last keyframe frame, last loop keyframe
+    and lost streak; those left out keep a fresh session's values). The
+    trajectory log stays as it is."""
+    dev = session.device
+    B = session.B
+
+    def pose(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    session.maps = _unstack(MapState, maps, B, dev)
+    session.edges = _unstack(EdgeList, edges, B, dev)
+    session.n_edges = list(_to_tensor(np.asarray(n_edges), dev).unbind(0))
+    session.T_world = pose(T_world)
+    session.motion = pose(motion)
+    session.last_kf_T = pose(last_kf_T)
+    if prev_pyr is not None:
+        session.prev_pyr = pyramid_from_numpy(prev_pyr, dev)
+    session._n_kf = np.asarray(n_kf, np.int64).copy()
+    session._frame_i = int(frame_i)
+    for name, value in (("_last_kf_frame", last_kf_frame),
+                        ("_last_loop_kf", last_loop_kf),
+                        ("_lost_streak", lost_streak)):
+        if value is not None:
+            setattr(session, name, np.asarray(value, np.int64).copy())
+
+
+def batch_state_to_numpy(session) -> dict:
+    """The array state of a `BatchSession` in the JAX package's layout:
+    `maps` and `edges` as dicts of arrays with a leading B, `n_edges`,
+    `T_world`, `motion`, `last_kf_T`, `prev_pyr` (None before the first
+    frame) and the host counters."""
+    return {
+        "maps": _stack(session.maps),
+        "edges": _stack(session.edges),
+        "n_edges": np.stack([n.cpu().numpy() for n in session.n_edges]),
+        "T_world": session.T_world.cpu().numpy(),
+        "motion": session.motion.cpu().numpy(),
+        "last_kf_T": session.last_kf_T.cpu().numpy(),
+        "prev_pyr": (None if session.prev_pyr is None
+                     else pyramid_to_numpy(session.prev_pyr)),
+        "n_kf": session._n_kf.copy(),
+        "frame_i": session._frame_i,
+        "last_kf_frame": session._last_kf_frame.copy(),
+        "last_loop_kf": session._last_loop_kf.copy(),
+        "lost_streak": session._lost_streak.copy(),
+    }

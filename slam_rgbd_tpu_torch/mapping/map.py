@@ -114,10 +114,12 @@ def should_insert_keyframe(
     cfg: KeyframeConfig,
 ) -> torch.Tensor:
     """Keyframe decision: enough motion since the last keyframe, or tracking
-    quality dropping. Returns a () bool tensor on the poses' device."""
+    quality dropping. Returns a () bool tensor on the poses' device, or (B,)
+    for (B, 4, 4) poses and (B,) ratios."""
     D = se3.inverse(T_world_last_kf) @ T_world_cam
-    trans = torch.linalg.norm(D[:3, 3])
-    cos_r = torch.clamp((D[0, 0] + D[1, 1] + D[2, 2] - 1.0) * 0.5, -1.0, 1.0)
+    trans = torch.linalg.norm(D[..., :3, 3], dim=-1)
+    cos_r = torch.clamp(
+        (D[..., 0, 0] + D[..., 1, 1] + D[..., 2, 2] - 1.0) * 0.5, -1.0, 1.0)
     rot = torch.arccos(cos_r)
     return (
         (trans > cfg.kf_min_trans)

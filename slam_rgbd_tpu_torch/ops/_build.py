@@ -36,6 +36,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gn_reduce_scratch_floats": ([_I, _I], _I),
     "gn_reduce_launch": ([_P, _P, _P] + [_I] * 3 + [_F] * 10 + [_P] * 4, _I),
+    "gn_reduce_batched_scratch_floats": ([_I, _I, _I], _I),
+    "gn_reduce_batched_launch": (
+        [_P, _P, _P] + [_I] * 4 + [_F] * 10 + [_P] * 4, _I),
     "gn_reduce_error_string": ([_I], ctypes.c_char_p),
     "hamming_top2_launch": ([_P, _P, _I, _P, _P, _I] + [_P] * 6, _I),
     "gated_match_launch": (

@@ -1,7 +1,8 @@
 // One Gauss-Newton reduction of dense point-to-plane + photometric ICP.
 //
-// Replaces the TPU kernel `gn_reduce` in slam_rgbd_tpu/ops/icp_pallas.py
-// (body `_make_kernel`, pallas_call at line 413). It computes the same sums
+// Replaces the TPU kernels `gn_reduce` and `gn_reduce_batched` in
+// slam_rgbd_tpu/ops/icp_pallas.py (body `_make_kernel`, pallas_calls at lines
+// 413 and 493). It computes the same sums
 // as that kernel and as `odometry/icp._normal_equations` with a fixed
 // dominant-flow shift (mu_u, mu_v):
 //
@@ -33,6 +34,16 @@
 // one-block kernel sums each row with one warp, in a fixed order. No float
 // atomics: repeated runs give identical output.
 //
+// Batch. `blockIdx.y` of the pixel kernel and `blockIdx.x` of the finalize
+// kernel name the problem: each problem has its own 18 scalars, planes,
+// partial table and outputs, and the per-block partials and the order of the
+// final sums do not depend on how many problems a launch holds. Problem b of
+// a batched launch therefore equals, bit for bit, a single launch on the same
+// inputs (the TPU kernel's contract). A single 640x480 launch is mostly launch
+// gaps and its one-block finalize; eight problems read 8 x 22 MB of planes,
+// more than L2 holds, and the batched launch moves toward its device-memory
+// bound (`PERF.md` has the times beside the bounds).
+//
 // Numerics. Built with --fmad=false, so every product and sum rounds as the
 // plain torch version (`gn_reduce_reference`) rounds it, and per-pixel
 // values and gates agree bit for bit; only the order of the final sums
@@ -48,6 +59,8 @@ constexpr int kTri = 28;           // upper triangle of a 7x7 block
 constexpr int kEntries = 2 * kTri; // geometric block, then photometric
 constexpr int kPartialRow = kEntries + 1;  // + inlier count (as float bits)
 constexpr int kFinalThreads = 1024;
+constexpr int kScalars = 18;  // T row-major, mu_u, mu_v
+constexpr int kOut = 43;      // H 6x6, g 6, sq_sum
 
 struct Params {
   int height, width, radius;
@@ -84,13 +97,19 @@ __device__ __forceinline__ float corner_weight(float df, float d, float base,
 }
 
 __global__ void __launch_bounds__(kThreads)
-gn_pixels(const float* __restrict__ scal, const float* __restrict__ src,
-          const float* __restrict__ tgt, Params p,
-          float* __restrict__ partial) {
+gn_pixels(const float* __restrict__ scal_all, const float* __restrict__ src_all,
+          const float* __restrict__ tgt_all, Params p,
+          float* __restrict__ partial_all) {
   __shared__ float sh[kEntries][kWarps];
   __shared__ int sh_cnt[kWarps];
 
   const int n = p.height * p.width;
+  // this block's problem
+  const size_t prob = blockIdx.y;
+  const float* __restrict__ scal = scal_all + prob * kScalars;
+  const float* __restrict__ src = src_all + prob * 8 * n;
+  const float* __restrict__ tgt = tgt_all + prob * 10 * n;
+  float* __restrict__ partial = partial_all + prob * gridDim.x * kPartialRow;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   float a[7], b[7];
   float w = 0.0f, wi = 0.0f;
@@ -219,10 +238,15 @@ gn_pixels(const float* __restrict__ scal, const float* __restrict__ src,
 }
 
 __global__ void __launch_bounds__(kFinalThreads)
-gn_finalize(const float* __restrict__ partial, int n_blocks,
-            float* __restrict__ out, int* __restrict__ inliers) {
+gn_finalize(const float* __restrict__ partial_all, int n_blocks,
+            float* __restrict__ out_all, int* __restrict__ inliers_all) {
   __shared__ float tot[kEntries];
   __shared__ int count;
+  // one block a problem
+  const float* __restrict__ partial =
+      partial_all + (size_t)blockIdx.x * n_blocks * kPartialRow;
+  float* __restrict__ out = out_all + blockIdx.x * kOut;
+  int* __restrict__ inliers = inliers_all + blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -261,6 +285,19 @@ gn_finalize(const float* __restrict__ partial, int n_blocks,
   }
 }
 
+// Both kernels for `batch` problems laid out one after another.
+int launch(const float* scal, const float* src, const float* tgt, int batch,
+           const Params& p, float* scratch, float* out, int* inliers,
+           void* stream) {
+  const int n_blocks = (p.height * p.width + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gn_pixels<<<dim3(n_blocks, batch), kThreads, 0, s>>>(scal, src, tgt, p, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_finalize<<<batch, kFinalThreads, 0, s>>>(scratch, n_blocks, out, inliers);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -269,6 +306,11 @@ extern "C" {
 int gn_reduce_scratch_floats(int height, int width) {
   const int n_blocks = (height * width + kThreads - 1) / kThreads;
   return n_blocks * kPartialRow;
+}
+
+// Length of the scratch buffer `gn_reduce_batched_launch` needs, in floats.
+int gn_reduce_batched_scratch_floats(int batch, int height, int width) {
+  return batch * gn_reduce_scratch_floats(height, width);
 }
 
 // scal: 18 floats on the device (T row-major, mu_u, mu_v).
@@ -283,13 +325,24 @@ int gn_reduce_launch(const float* scal, const float* src, const float* tgt,
                      float* scratch, float* out, int* inliers, void* stream) {
   const Params p{height, width, radius, fx, fy, cx, cy,
                  min_depth, max_dist_sq, cos_thresh, huber, rgb_w, rgb_huber};
-  const int n_blocks = (height * width + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_pixels<<<n_blocks, kThreads, 0, s>>>(scal, src, tgt, p, scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gn_finalize<<<1, kFinalThreads, 0, s>>>(scratch, n_blocks, out, inliers);
-  return static_cast<int>(cudaGetLastError());
+  return launch(scal, src, tgt, 1, p, scratch, out, inliers, stream);
+}
+
+// `batch` independent problems in one launch of each kernel.
+// scal: (batch, 18); src: (batch, 8, H, W); tgt: (batch, 10, H, W);
+// out: (batch, 43); inliers: (batch,) int32; scratch:
+// gn_reduce_batched_scratch_floats(batch, H, W) floats. batch <= 65535.
+int gn_reduce_batched_launch(const float* scal, const float* src,
+                             const float* tgt, int batch,
+                             int height, int width, int radius,
+                             float fx, float fy, float cx, float cy,
+                             float min_depth, float max_dist_sq, float cos_thresh,
+                             float huber, float rgb_w, float rgb_huber,
+                             float* scratch, float* out, int* inliers,
+                             void* stream) {
+  const Params p{height, width, radius, fx, fy, cx, cy,
+                 min_depth, max_dist_sq, cos_thresh, huber, rgb_w, rgb_huber};
+  return launch(scal, src, tgt, batch, p, scratch, out, inliers, stream);
 }
 
 const char* gn_reduce_error_string(int err) {

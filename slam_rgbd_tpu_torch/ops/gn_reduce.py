@@ -25,6 +25,12 @@ that weight, as in the reference.
 `gn_reduce` dispatches on the device of `src`: a CPU tensor goes to
 `gn_reduce_reference`, a CUDA tensor to the hand-written kernel in
 `csrc/gn_reduce.cu`, and any error there raises.
+
+`gn_reduce_batched` (counterpart of `icp_pallas.gn_reduce_batched`) does the
+same for B independent problems, every argument with a leading B, in one
+launch of the same kernel with the problem index on the grid. Problem b of
+its result equals a single `gn_reduce` call on that problem's inputs bit for
+bit, on the card as in the plain version.
 """
 
 from __future__ import annotations
@@ -161,25 +167,31 @@ def gn_reduce_reference(T, mu, src, tgt, cam: CameraIntrinsics,
     return h_mat, m[:6, 6], mask.sum().to(torch.int32), m_geo[6, 6]
 
 
-def _check_inputs(T, mu, src, tgt, radius: int) -> None:
+def _check_inputs(T, mu, src, tgt, radius: int, batched: bool = False) -> None:
+    """Raise on what the kernel does not take. `batched`: every tensor has
+    one leading problem axis of the same length."""
+    fn = "gn_reduce_batched" if batched else "gn_reduce"
     for name, x in (("T", T), ("mu", mu), ("src", src), ("tgt", tgt)):
         if x.device != src.device:
-            raise ValueError(f"gn_reduce: {name} on {x.device}, src on {src.device}")
+            raise ValueError(f"{fn}: {name} on {x.device}, src on {src.device}")
         if x.dtype != torch.float32:
-            raise ValueError(f"gn_reduce: {name} must be float32, got {x.dtype}")
+            raise ValueError(f"{fn}: {name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"gn_reduce: {name} must be contiguous")
-    if T.shape != (4, 4) or mu.shape != (2,):
-        raise ValueError(f"gn_reduce: T {tuple(T.shape)}, mu {tuple(mu.shape)}")
-    if src.dim() != 3 or src.shape[0] != SRC_CHANNELS:
-        raise ValueError(f"gn_reduce: src must be (8, H, W), got {tuple(src.shape)}")
-    if tgt.shape != (TGT_CHANNELS,) + tuple(src.shape[1:]):
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    lead = tuple(src.shape[:1]) if batched else ()
+    if src.dim() != len(lead) + 3 or src.shape[-3] != SRC_CHANNELS:
         raise ValueError(
-            f"gn_reduce: tgt must be (10, H, W) = (10, {src.shape[1]}, "
-            f"{src.shape[2]}), got {tuple(tgt.shape)}"
-        )
+            f"{fn}: src must be {'(B, ' if batched else '('}8, H, W), "
+            f"got {tuple(src.shape)}")
+    if tuple(T.shape) != lead + (4, 4) or tuple(mu.shape) != lead + (2,):
+        raise ValueError(f"{fn}: T {tuple(T.shape)}, mu {tuple(mu.shape)}")
+    want = lead + (TGT_CHANNELS,) + tuple(src.shape[-2:])
+    if tuple(tgt.shape) != want:
+        raise ValueError(f"{fn}: tgt must be {want}, got {tuple(tgt.shape)}")
+    if batched and not 1 <= lead[0] <= 65535:
+        raise ValueError(f"{fn}: 1 to 65535 problems a launch, got {lead[0]}")
     if radius < 0:
-        raise ValueError(f"gn_reduce: radius must be >= 0, got {radius}")
+        raise ValueError(f"{fn}: radius must be >= 0, got {radius}")
 
 
 def gn_reduce(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
@@ -221,3 +233,58 @@ def gn_reduce(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
 
 
 gn_reduce.launches = 0
+
+
+def gn_reduce_batched_reference(T, mu, src, tgt, cam: CameraIntrinsics,
+                                cfg: ICPConfig, radius: int):
+    """Plain torch version of the batched kernel: `gn_reduce_reference` on
+    each problem in turn, so that problem b equals the single plain version
+    on its inputs exactly."""
+    _check_inputs(T, mu, src, tgt, radius, batched=True)
+    outs = [gn_reduce_reference(T[b], mu[b], src[b], tgt[b], cam, cfg, radius)
+            for b in range(src.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def gn_reduce_batched(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
+                      radius: int):
+    """B fused GN reductions in one launch: T (B, 4, 4), mu (B, 2), src
+    (B, 8, H, W), tgt (B, 10, H, W) -> (H (B, 6, 6), g (B, 6), inliers (B,)
+    int32, sq_sum (B,)).
+
+    CPU tensors take `gn_reduce_batched_reference`. CUDA tensors launch the
+    kernel once for all B problems on the current stream (no host sync) and
+    count one in `gn_reduce_batched.launches`; a CUDA error raises.
+    """
+    if src.device.type == "cpu":
+        return gn_reduce_batched_reference(T, mu, src, tgt, cam, cfg, radius)
+    if src.device.type != "cuda":
+        raise ValueError(f"gn_reduce_batched: no kernel for device {src.device}")
+    _check_inputs(T, mu, src, tgt, radius, batched=True)
+    from slam_rgbd_tpu_torch.ops import _build
+
+    lib = _build.load()
+    n_b, _, h, w = src.shape
+    c = _constants(cam, cfg)
+    scal = torch.cat([T.reshape(n_b, 16), mu], dim=1)
+    scratch = torch.empty(
+        lib.gn_reduce_batched_scratch_floats(n_b, h, w), dtype=torch.float32,
+        device=src.device,
+    )
+    out = torch.empty((n_b, 43), dtype=torch.float32, device=src.device)
+    inliers = torch.empty((n_b,), dtype=torch.int32, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.gn_reduce_batched_launch(
+            scal.data_ptr(), src.data_ptr(), tgt.data_ptr(), n_b, h, w, radius,
+            c["fx"], c["fy"], c["cx"], c["cy"], c["min_depth"],
+            c["max_dist_sq"], c["cos_thresh"], c["huber"], c["rgb_w"],
+            c["rgb_huber"], scratch.data_ptr(), out.data_ptr(),
+            inliers.data_ptr(), stream,
+        )
+    _build.check(err, "gn_reduce_batched launch")
+    gn_reduce_batched.launches += 1
+    return out[:, :36].view(n_b, 6, 6), out[:, 36:42], inliers, out[:, 42]
+
+
+gn_reduce_batched.launches = 0
