@@ -6,33 +6,44 @@
 Run from the root of a checkout. `--control` adds two tracking-only sweeps
 to the main phase, one before and one after the measured sweep, to show how
 far the host's speed moves within the process. `--profile` adds a
-`torch.profiler` trace of a few tracked batch steps at B = 4 and B = 1 to the
-batch phase (device operations a step, their device time, the card's busy
-share). Phases, each fatal on failure:
+`torch.profiler` trace of a few tracked frames of the single session and of
+a few tracked batch steps at B = 4 and B = 1 (device operations a frame or
+step, their device time, the card's busy share, and the flow shift's part of
+them). Phases, each fatal on failure:
 
   1. device  - a CUDA card is required; prints its name and power limit.
   2. build   - compiles the kernels from `slam_rgbd_tpu_torch/ops/csrc/`
                with nvcc for sm_90a (one nvcc a source, in parallel).
-  3. kernels - each CUDA kernel against its plain torch version on the card:
-               `gn_reduce` on a rendered 640x480 frame pair at the three
-               pyramid levels the tracker uses; `gated_match` (1024 x 16384)
+  3. kernels - the time of an empty kernel launch (`launch_floor_ms`), then
+               each CUDA kernel against its plain torch version on the card:
+               `gn_reduce` and `gn_step` (the same launch, which goes on to
+               the damped solve and the pose update) on a rendered 640x480
+               frame pair at the three pyramid levels the tracker uses,
+               `gn_step`'s next pose against `solve_update_written_out` and
+               `_apply_update`, a degenerate system included;
+               `gated_match` (1024 x 16384)
                and `hamming_top2` (1024 x 16384 and 16384 x 1024) on the
                descriptors and geometry of rendered 640x480 keyframes in a
                full-capacity map, with seeded ties and masked rows, all
                outputs exactly equal. Median device times of kernel and
                plain version over 50 calls (CUDA events), and the least time
                the card could take for the same work.
-               `gn_reduce_batched` with 8, 4 and 1 problems (frame pairs at
-               different poses) at the same three shapes: equal to its plain
-               version, two launches identical, and each problem identical
-               bit for bit to a single `gn_reduce` launch on its slice.
+               `gn_reduce_batched` / `gn_step_batched` with 8, 4 and 1
+               problems (frame pairs at different poses) at the same three
+               shapes, and at the coarsest the tracker's stacked starts: three
+               poses over one shared set of planes (the single session) and
+               3 x 4 poses over 4 sets, three a set (the batch session):
+               equal to the plain version, two launches identical,
+               and each problem identical bit for bit to a single launch on
+               its slice.
   4. small   - a 160x120 sequence through the session on the card and on the
                CPU (plain path): poses, keyframes and map agree.
   5. main    - a 240-frame 640x480 out-and-back orbit (the JAX package's
                bench scene) through `SLAMSession(device="cuda")` at full
                width (1024 features, 8 levels, 256 keyframes, 16384 map
-               points): every GN reduction a kernel launch (42 a tracked
-               frame), one `gated_match` launch a keyframe insert that had a
+               points): every GN iteration one kernel launch (10 batched
+               ones for the three coarse starts and 7 + 5 single ones a
+               tracked frame), one `gated_match` launch a keyframe insert that had a
                map, no lost frame, ATE within 5 cm, the TUM export reloads;
                frames/s and per-frame p50/p99 from CUDA events.
   6. reloc   - on the map the main phase built, `_relocalize` of a sweep
@@ -48,7 +59,7 @@ share). Phases, each fatal on failure:
   9. batch   - `BatchSession(cfg, 4)` at full width over 120 frames of
                640x480 under injected odometry drift (the JAX bench's loop
                leg): sequences 0 and 1 the out-and-back sweep, 2 and 3
-               forward orbits. 42 `gn_reduce_batched` launches a tracked
+               forward orbits. 22 `gn_reduce_batched` launches a tracked
                step and no single `gn_reduce` launch, one `gated_match`
                launch an insert with a map, `hamming_top2` launches from
                loop verification, all poses finite, the sweep sequences
@@ -86,6 +97,10 @@ KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
 # every tracked relative pose, denser keyframes, a shorter loop interval
 LOOP_LEG_DRIFT = (0.006, 0.0, 0.003, 0.0, 0.003, 0.0)
 MATCHED_SHARE_MIN = 0.5  # of a later keyframe's valid keypoints, see main_phase
+# what the sweep has read since the keyframe path landed; the GN sums may run
+# in another order, the result may not move
+SWEEP_KEYFRAMES = 28  # +- 1
+SWEEP_ATE_CM = 1.307  # +- 0.05
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory, float32 outside the tensor cores, int8 in the tensor cores.
@@ -109,9 +124,12 @@ def device_ms(fn, n: int = TIMING_LAUNCHES) -> tuple[float, float]:
 
     A spin kernel holds the card while the host queues all n calls, so the
     event pairs bracket device work and not the host's launch overhead
-    (which exceeds it for these small calls). The busy share is the sum of
-    the pairs over the span from the first to the last event: near 1 when
-    the queue never ran dry."""
+    (which exceeds it for these small calls). A pass in which the host took
+    longer to queue them than the spin lasts is taken once more with a
+    longer spin (a call of many operations fills the launch queue and waits
+    for the spin to end whatever its length: its time is the host's). The
+    busy share is the sum of the pairs over the span from the first to the
+    last event: near 1 when the queue never ran dry."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -120,14 +138,21 @@ def device_ms(fn, n: int = TIMING_LAUNCHES) -> tuple[float, float]:
         fn()
     torch.cuda.synchronize()
     enqueue_s = time.perf_counter() - t0
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(n)]
-    torch.cuda._sleep(int(2.0 * enqueue_s * 2.0e9) + 1_000_000)  # ~2x at <= 2 GHz
-    for a, b in pairs:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
+    spin_s = 3.0 * enqueue_s + 1e-3
+    for _ in range(2):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(n)]
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_s * 2.0e9))  # cycles; the clock is below 2 GHz
+        for a, b in pairs:
+            a.record()
+            fn()
+            b.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued_s < spin_s:
+            break
+        spin_s = 2.0 * queued_s  # the host fell behind the spin: again, longer
     times = [a.elapsed_time(b) for a, b in pairs]
     span = pairs[0][0].elapsed_time(pairs[-1][1])
     return float(np.median(times)), float(sum(times) / span)
@@ -185,10 +210,48 @@ def build_phase() -> None:
             print(f"  ptxas: {line.strip()}")
 
 
+def launch_floor_phase() -> float:
+    """Device time of an empty kernel launch: what no call can go below."""
+    phase("kernels: launch floor")
+    from slam_rgbd_tpu_torch.ops import _build
+
+    lib = _build.load()
+
+    def empty():
+        _build.check(lib.gn_reduce_empty_launch(torch.cuda.current_stream().cuda_stream),
+                     "empty launch")
+
+    ms, busy = device_ms(empty)
+    print(f"launch_floor_ms {ms:.4f} (an empty kernel between two events, device "
+          f"median of {TIMING_LAUNCHES}, queue busy share {busy:.3f})")
+    return ms
+
+
+def _gn_errors(got, ref) -> tuple[float, float, float, int]:
+    """(H err / scale, g err / scale, sq_sum relative err, inlier difference)
+    of one problem's (H, g, inliers, sq_sum) against the plain version's."""
+    H1, g1, i1, s1 = (x.cpu().numpy() for x in got)
+    H0, g0, i0, s0 = (x.cpu().numpy() for x in ref)
+    h_scale = max(1.0, float(np.abs(H0).max()))
+    g_scale = max(1.0, float(np.abs(g0).max()))
+    return (float(np.abs(H1 - H0).max()) / h_scale, float(np.abs(g1 - g0).max()) / g_scale,
+            abs(float(s1) - float(s0)) / max(abs(float(s0)), 1e-30), int(i1) - int(i0))
+
+
+def _gn_bound(tg, n_b: int, n_sets: int, n_px: int):
+    """Each plane set, pose and flow read once, 60 values a problem written
+    (H, g, sq_sum, inliers, the next pose); ~300 float operations a pixel
+    (projection, four-corner sampling of ten channels, two 7-vector outer
+    products) and ~500 a problem for the pose update."""
+    return bound(4.0 * (n_sets * (tg.SRC_CHANNELS + tg.TGT_CHANNELS) * n_px + n_b * (18 + 60)),
+                 f32_ops=n_b * (300.0 * n_px + 500.0))
+
+
 def gn_kernel_phase(cfg) -> dict:
-    """gn_reduce vs gn_reduce_reference at the tracker's three level shapes."""
-    phase("kernels: gn_reduce")
-    from slam_rgbd_tpu_torch.core import camera
+    """gn_reduce / gn_step vs their plain versions at the tracker's three
+    level shapes."""
+    phase("kernels: gn_reduce, gn_step")
+    from slam_rgbd_tpu_torch.core import camera, se3
     from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
     from slam_rgbd_tpu_torch.odometry import icp
     from slam_rgbd_tpu_torch.ops import gn_reduce as tg
@@ -204,8 +267,7 @@ def gn_kernel_phase(cfg) -> dict:
     worst, rows = 0.0, []
     for k in range(icfg.levels - 1, -1, -1):
         lcam = cam.scaled(2.0 ** k)
-        ci = min(icfg.levels - 1 - k, len(icfg.iters) - 1)
-        radius = icfg.window_px[min(ci, len(icfg.window_px) - 1)]
+        _, radius = icp._level_schedule(icfg, icfg.levels, k)
         src = icp.level_planes(pyrs[1][k])[: tg.SRC_CHANNELS].contiguous()
         tgt = icp.level_planes(pyrs[0][k])
         _, up, vp, _ = icp._project_level(T, pyrs[1][k]["vertices"], lcam)
@@ -214,73 +276,158 @@ def gn_kernel_phase(cfg) -> dict:
 
         k1 = tg.gn_reduce(*args)
         k2 = tg.gn_reduce(*args)
+        s1 = tg.gn_step(*args)
+        s2 = tg.gn_step(*args)
         ref = tg.gn_reduce_reference(*args)
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
-              "two kernel runs differ")
-        H1, g1, i1, s1 = (x.cpu().numpy() for x in k1)
-        H0, g0, i0, s0 = (x.cpu().numpy() for x in ref)
-        h_scale = max(1.0, float(np.abs(H0).max()))
-        g_scale = max(1.0, float(np.abs(g0).max()))
-        err_h = float(np.abs(H1 - H0).max()) / h_scale
-        err_g = float(np.abs(g1 - g0).max()) / g_scale
-        err_s = abs(float(s1) - float(s0)) / max(abs(float(s0)), 1e-30)
-        d_inl = int(i1) - int(i0)
+        check(all(torch.equal(a, b) for a, b in zip(k1, k2)), "two kernel runs differ")
+        check(all(torch.equal(a, b) for a, b in zip(s1, s2)), "two gn_step runs differ")
+        check(all(torch.equal(a, b) for a, b in zip(k1, s1[1:])),
+              "gn_step's reduction differs from gn_reduce's")
+        err_h, err_g, err_s, d_inl = _gn_errors(k1, ref)
         shape = f"{lcam.height}x{lcam.width}/R{radius}"
-        print(f"{shape}: mu={mu.tolist()} inliers kernel {int(i1)} plain "
-              f"{int(i0)}; H err/scale {err_h:.2e} (<= 2e-6), g err/scale "
+        print(f"{shape}: mu={mu.tolist()} inliers kernel {int(k1[2])} plain "
+              f"{int(ref[2])}; H err/scale {err_h:.2e} (<= 2e-6), g err/scale "
               f"{err_g:.2e} (<= 5e-5), sq_sum rel err {err_s:.2e} (<= 1e-4)")
         check(err_h <= 2e-6 and err_g <= 5e-5 and err_s <= 1e-4,
               f"{shape}: kernel disagrees with plain version")
-        check(int(i1) > 1000, f"{shape}: only {int(i1)} inliers")
+        check(int(k1[2]) > 1000, f"{shape}: only {int(k1[2])} inliers")
         if d_inl != 0:
             # per-pixel arithmetic rounds alike in both, so a difference can
             # only come from a gate that the final float sums do not touch
             print(f"  inliers differ by {d_inl}: a pixel on a gate threshold")
         check(abs(d_inl) <= 2, f"{shape}: inliers differ by {d_inl}")
         worst = max(worst, err_h, err_g)
-        ms, busy = device_ms(lambda: tg.gn_reduce(*args))
-        plain_ms, plain_busy = device_ms(lambda: tg.gn_reduce_reference(*args))
-        print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (queue busy share {busy:.3f} / {plain_busy:.3f})")
-        # inputs read once (8 + 10 planes, T and mu), 44 values written;
-        # ~300 float operations a pixel (projection, four-corner sampling of
-        # ten channels, two 7-vector outer products)
-        n_px = lcam.height * lcam.width
-        b_ms, b_by = bound(4.0 * ((tg.SRC_CHANNELS + tg.TGT_CHANNELS) * n_px + 18 + 44),
-                           f32_ops=300.0 * n_px)
-        print(f"  bound {b_ms:.4f} ms by {b_by}")
-        rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+
+        # the pose update of the same launch: against its own arithmetic
+        # written out in torch (sin / cos may differ in the last bit) and
+        # against the tracker's plain step (library Cholesky and products)
+        T_next, H, g, inl, _ = s1
+        written = tg.solve_update_written_out(T, H, g, inl, icfg.damping)
+        applied = icp._apply_update(T, H, g, inl, icfg)
+        err_w = float((T_next - written).abs().max())
+        err_a = float((T_next - applied).abs().max())
+        # no valid source pixel: no inliers, the identity step
+        dead = src.clone()
+        dead[6] = 0.0
+        T_dead, _, _, inl_dead, _ = tg.gn_step(T, mu, dead, tgt, lcam, icfg, radius)
+        err_d = float((T_dead - se3.normalize_rotation(T)).abs().max())
+        print(f"  gn_step: T_next vs solve_update_written_out {err_w:.2e} (<= 1e-6), vs "
+              f"_apply_update {err_a:.2e} (<= 1e-5), moved the pose by "
+              f"{float((T_next - T).abs().max()):.2e}; all-invalid source: inliers "
+              f"{int(inl_dead)}, identity step to {err_d:.2e} (<= 1e-6)")
+        check(err_w <= 1e-6 and err_a <= 1e-5, f"{shape}: gn_step's pose update disagrees")
+        check(float((T_next - T).abs().max()) > 1e-6, f"{shape}: gn_step did not move the pose")
+        check(int(inl_dead) == 0 and err_d <= 1e-6, f"{shape}: no identity step")
+        worst = max(worst, err_w)
+
+        reduce_ms, _ = device_ms(lambda: tg.gn_reduce(*args))
+        ms, busy = device_ms(lambda: tg.gn_step(*args))
+        plain_ms, plain_busy = device_ms(lambda: tg.gn_step_reference(*args))
+        b_ms, b_by = _gn_bound(tg, 1, 1, lcam.height * lcam.width)
+        print(f"  device median of {TIMING_LAUNCHES}: gn_reduce {reduce_ms:.4f} ms, gn_step "
+              f"{ms:.4f} ms, plain gn_step "
+              f"{plain_ms:.4f} ms (queue busy share {busy:.3f} / {plain_busy:.3f}); bound "
+              f"{b_ms:.4f} ms by {b_by}")
+        rows.append({"shape": shape, "ms": ms, "reduce_ms": reduce_ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
     return {"max_err": worst, "rows": rows}
 
 
-def gn_batched_kernel_phase(cfg) -> dict:
-    """gn_reduce_batched vs its plain version and vs single gn_reduce
-    launches, at the tracker's three level shapes, for frame pairs of the
-    sweep at eight different poses."""
-    phase("kernels: gn_reduce_batched")
+def _sweep_pairs(cfg):
+    """max(KERNEL_B) frame pairs (i, i + 1) spread over the sweep, as
+    batched pyramids on the card -> (T (B, 4, 4) true relative poses,
+    source pyramid, target pyramid)."""
     from slam_rgbd_tpu_torch.core import camera
     from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
-    from slam_rgbd_tpu_torch.odometry import icp
-    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
 
     dev = torch.device("cuda", 0)
     cam, icfg = cfg.camera, cfg.icp
     n_max = max(KERNEL_B)
     gt = orbit_trajectory(N_FRAMES, sweep=True)
-    first = [i * (N_FRAMES // n_max) for i in range(n_max)]  # pairs (i, i + 1)
+    first = [i * (N_FRAMES // n_max) for i in range(n_max)]
 
     def pyramid(idx):
         depth, rgb = (torch.stack(x) for x in zip(
             *(render_frame(gt[i], cam, device=dev) for i in idx)))
         return camera.build_frame_pyramid(depth, cam, levels=icfg.levels, rgb=rgb)
 
-    tgt_pyr = pyramid(first)
-    src_pyr = pyramid([i + 1 for i in first])
     T = torch.from_numpy(np.stack(
         [np.linalg.inv(gt[i]) @ gt[i + 1] for i in first]).astype(np.float32)).to(dev)
+    return T, pyramid([i + 1 for i in first]), pyramid(first)
+
+
+def gn_batched_kernel_phase(cfg) -> dict:
+    """gn_reduce_batched / gn_step_batched vs their plain versions and vs
+    single launches, at the tracker's three level shapes, for frame pairs of
+    the sweep at eight different poses; and the tracker's stacked coarse
+    starts: three poses over one shared set of planes, and three poses a
+    plane set over BATCH_B sets."""
+    phase("kernels: gn_reduce_batched, gn_step_batched")
+    from slam_rgbd_tpu_torch.core import se3
+    from slam_rgbd_tpu_torch.odometry import icp
+    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+
+    dev = torch.device("cuda", 0)
+    cam, icfg = cfg.camera, cfg.icp
+    n_max = max(KERNEL_B)
+    T, src_pyr, tgt_pyr = _sweep_pairs(cfg)
     worst, rows = 0.0, []
+
+    def one_case(shape, n_b, args, n_sets, with_plain, n_px):
+        """Checks and times of one batched launch shape -> its row."""
+        nonlocal worst
+        lcam, radius = args[4], args[6]
+        sets = lambda b: b // (n_b // n_sets)
+        k1 = tg.gn_step_batched(*args)
+        k2 = tg.gn_step_batched(*args)
+        r1 = tg.gn_reduce_batched(*args)
+        singles = [tg.gn_step(args[0][b], args[1][b], args[2][sets(b)], args[3][sets(b)],
+                              lcam, icfg, radius) for b in range(n_b)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+              f"{shape} B={n_b}: two batched launches differ")
+        check(all(torch.equal(a, b) for a, b in zip(k1[1:], r1)),
+              f"{shape} B={n_b}: gn_step_batched's reduction differs from gn_reduce_batched's")
+        check(all(torch.equal(a[b], c) for b in range(n_b) for a, c in zip(k1, singles[b])),
+              f"{shape} B={n_b}: a problem differs from its single launch")
+        written = tg.solve_update_written_out(args[0], k1[1], k1[2], k1[3], icfg.damping)
+        err_w = float((k1[0] - written).abs().max())
+        check(err_w <= 1e-6, f"{shape} B={n_b}: pose update off by {err_w:.2e}")
+        worst = max(worst, err_w)
+        reduce_ms, _ = device_ms(lambda: tg.gn_reduce_batched(*args))
+        ms, busy = device_ms(lambda: tg.gn_step_batched(*args))
+        b_ms, b_by = _gn_bound(tg, n_b, n_sets, n_px)
+        row = {"shape": shape, "B": n_b, "sets": n_sets, "ms": ms, "reduce_ms": reduce_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if with_plain:
+            ref = tg.gn_step_batched_reference(*args)
+            torch.cuda.synchronize()
+            errs = [_gn_errors([x[b] for x in k1[1:]], [x[b] for x in ref[1:]])
+                    for b in range(n_b)]
+            err_h, err_g, err_s = (max(e[i] for e in errs) for i in range(3))
+            err_t = float((k1[0] - ref[0]).abs().max())
+            inl = k1[3].tolist()
+            print(f"{shape} B={n_b} over {n_sets} plane set(s): inliers {inl} (plain: equal "
+                  f"{all(e[3] == 0 for e in errs)}); H err/scale {err_h:.2e} (<= 2e-6), g "
+                  f"err/scale {err_g:.2e} (<= 5e-5), sq_sum rel err {err_s:.2e} (<= 1e-4), "
+                  f"T_next vs plain gn_step {err_t:.2e} (<= 1e-5), vs its arithmetic "
+                  f"written out {err_w:.2e} (<= 1e-6); two launches identical; every "
+                  f"problem bit-identical to its single launch")
+            check(err_h <= 2e-6 and err_g <= 5e-5 and err_s <= 1e-4 and err_t <= 1e-5,
+                  f"{shape} B={n_b}: kernel disagrees with plain version")
+            check(all(e[3] == 0 for e in errs) and min(inl) > 1000,
+                  f"{shape} B={n_b}: inliers {inl} differ from the plain version's")
+            check(len(torch.unique(k1[1].reshape(n_b, -1), dim=0)) == n_b,
+                  "the problems do not differ")
+            worst = max(worst, err_h, err_g)
+            row["plain_ms"], _ = device_ms(lambda: tg.gn_step_batched_reference(*args), n=5)
+        print(f"  {shape} B={n_b}: device median of {TIMING_LAUNCHES}: gn_reduce_batched "
+              f"{reduce_ms:.4f} ms, gn_step_batched {ms:.4f} ms (queue busy share {busy:.3f})"
+              + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else "")
+              + f"; bound {b_ms:.4f} ms by {b_by}")
+        return row
+
     for k in range(icfg.levels - 1, -1, -1):
         lcam = cam.scaled(2.0 ** k)
         _, radius = icp._level_schedule(icfg, icfg.levels, k)
@@ -291,52 +438,30 @@ def gn_batched_kernel_phase(cfg) -> dict:
         shape = f"{lcam.height}x{lcam.width}/R{radius}"
         n_px = lcam.height * lcam.width
         for n_b in KERNEL_B:
-            args = (T[:n_b].contiguous(), mu[:n_b].contiguous(), src[:n_b].contiguous(),
-                    tgt[:n_b].contiguous(), lcam, icfg, radius)
-            k1 = tg.gn_reduce_batched(*args)
-            k2 = tg.gn_reduce_batched(*args)
-            singles = [tg.gn_reduce(*(a[b] for a in args[:4]), lcam, icfg, radius)
-                       for b in range(n_b)]
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
-                  f"{shape} B={n_b}: two batched launches differ")
-            check(all(torch.equal(a[b], c) for b in range(n_b)
-                      for a, c in zip(k1, singles[b])),
-                  f"{shape} B={n_b}: a problem differs from its single launch")
-            ms, busy = device_ms(lambda: tg.gn_reduce_batched(*args))
-            # each problem's planes, pose and flow read once, 44 values written
-            b_ms, b_by = bound(
-                4.0 * n_b * ((tg.SRC_CHANNELS + tg.TGT_CHANNELS) * n_px + 18 + 44),
-                f32_ops=300.0 * n_b * n_px)
-            row = {"shape": shape, "B": n_b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
-            if n_b in (n_max, BATCH_B):
-                ref = tg.gn_reduce_batched_reference(*args)
-                torch.cuda.synchronize()
-                H1, g1, i1, s1 = (x.cpu().numpy() for x in k1)
-                H0, g0, i0, s0 = (x.cpu().numpy() for x in ref)
-                h_scale = np.maximum(1.0, np.abs(H0).max(axis=(1, 2)))
-                g_scale = np.maximum(1.0, np.abs(g0).max(axis=1))
-                err_h = float((np.abs(H1 - H0).max(axis=(1, 2)) / h_scale).max())
-                err_g = float((np.abs(g1 - g0).max(axis=1) / g_scale).max())
-                err_s = float((np.abs(s1 - s0) / np.maximum(np.abs(s0), 1e-30)).max())
-                print(f"{shape} B={n_b}: mu={mu[:n_b].tolist()} inliers {i1.tolist()} "
-                      f"(plain: equal {bool((i1 == i0).all())}); H err/scale {err_h:.2e} "
-                      f"(<= 2e-6), g err/scale {err_g:.2e} (<= 5e-5), sq_sum rel err "
-                      f"{err_s:.2e} (<= 1e-4); two launches identical; every problem "
-                      f"bit-identical to its single gn_reduce launch")
-                check(err_h <= 2e-6 and err_g <= 5e-5 and err_s <= 1e-4,
-                      f"{shape} B={n_b}: kernel disagrees with plain version")
-                check(bool((i1 == i0).all()) and int(i1.min()) > 1000,
-                      f"{shape} B={n_b}: inliers {i1.tolist()} vs plain {i0.tolist()}")
-                check(len(set(i1.tolist())) == n_b, "the problems do not differ")
-                worst = max(worst, err_h, err_g)
-                row["plain_ms"], _ = device_ms(
-                    lambda: tg.gn_reduce_batched_reference(*args), n=5)
-            print(f"  {shape} B={n_b}: device median of {TIMING_LAUNCHES}: kernel "
-                  f"{ms:.4f} ms (queue busy share {busy:.3f})"
-                  + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else "")
-                  + f"; bound {b_ms:.4f} ms by {b_by}")
-            rows.append(row)
+            args = (T[:n_b], mu[:n_b], src[:n_b], tgt[:n_b], lcam, icfg, radius)
+            rows.append(one_case(shape, n_b, args, n_b, n_b in (n_max, BATCH_B), n_px))
+        if k == icfg.levels - 1:
+            # the tracker's coarse starts: prior, identity, reversed prior
+            # over the planes of pair 0, the batch made by `expand`
+            starts = torch.stack([T[0], torch.eye(4, device=dev),
+                                  se3.normalize_rotation(se3.inverse(T[0]))])
+            verts = src_pyr[k]["vertices"][0]
+            _, up, vp, _ = icp._project_level(starts, verts, lcam)
+            mu3 = icp.flow_shift(up, vp, lcam.height, lcam.width)
+            args = (starts, mu3, src[0].expand(3, -1, -1, -1), tgt[0].expand(3, -1, -1, -1),
+                    lcam, icfg, radius)
+            rows.append(one_case(shape, 3, args, 1, True, n_px))
+            # the batch tracker's: the same three starts for each of BATCH_B
+            # pairs, problem b * 3 + s reading plane set b
+            n_s = BATCH_B
+            starts = torch.stack([T[:n_s], torch.eye(4, device=dev).expand(n_s, 4, 4),
+                                  se3.normalize_rotation(se3.inverse(T[:n_s]))],
+                                 dim=1).reshape(3 * n_s, 4, 4)
+            verts = src_pyr[k]["vertices"][:n_s].repeat_interleave(3, dim=0)
+            _, up, vp, _ = icp._project_level(starts, verts, lcam)
+            mu_s = icp.flow_shift(up, vp, lcam.height, lcam.width)
+            args = (starts, mu_s, src[:n_s], tgt[:n_s], lcam, icfg, radius)
+            rows.append(one_case(shape, 3 * n_s, args, n_s, True, n_px))
     return {"max_err": worst, "rows": rows}
 
 
@@ -549,19 +674,15 @@ def _control_sweep(cfg, frames) -> np.ndarray:
     """Steady-state call times of a session that only tracks: the same
     configuration with the keyframe thresholds out of reach, so that no call
     after the bootstrap runs the feature stage or touches the map."""
-    import dataclasses
-
     from slam_rgbd_tpu_torch import SLAMSession
 
-    never = dataclasses.replace(cfg.keyframes, kf_min_trans=1e9, kf_min_rot_deg=1e9,
-                                kf_min_inlier_ratio=0.0)
-    sess = SLAMSession(dataclasses.replace(cfg, keyframes=never))
+    sess = SLAMSession(_never_a_keyframe(cfg))
     ms, _, _ = _sweep(sess, frames, cfg.camera.fps)
     check(sess.state.keyframes == 1, "the control inserted keyframes")
     return ms[STEADY_FROM:]
 
 
-def main_phase(cfg, with_control: bool = False) -> dict:
+def main_phase(cfg, with_control: bool = False, with_profile: bool = False) -> dict:
     phase("main")
     from slam_rgbd_tpu_torch import SLAMSession
     from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse, load_trajectory_tum
@@ -587,9 +708,10 @@ def main_phase(cfg, with_control: bool = False) -> dict:
     check(sess.device.type == "cuda", f"default device is {sess.device}")
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    tg.gn_reduce.launches = th.gated_match.launches = th.hamming_top2.launches = 0
+    tg.gn_reduce.launches = tg.gn_reduce_batched.launches = 0
+    th.gated_match.launches = th.hamming_top2.launches = 0
     all_ms, kf_calls, wall = _sweep(sess, frames, cam.fps)
-    launches = tg.gn_reduce.launches
+    launches, stacked_launches = tg.gn_reduce.launches, tg.gn_reduce_batched.launches
     gated_launches, top2_launches = th.gated_match.launches, th.hamming_top2.launches
     peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
     ts, est = sess.poses()
@@ -612,8 +734,10 @@ def main_phase(cfg, with_control: bool = False) -> dict:
         1, keyframes, device=m.device)[:, None]
     ok = m.kp_ok[1:keyframes]
     matched_share = float(((pid >= 0) & older & ok).sum()) / max(float(ok.sum()), 1.0)
-    print(f"gn_reduce launches {launches} (expected 42 x {N_FRAMES - 1} = "
-          f"{42 * (N_FRAMES - 1)}), gated_match launches {gated_launches} (one a "
+    print(f"gn_reduce launches {launches} (expected 12 x {N_FRAMES - 1} = "
+          f"{12 * (N_FRAMES - 1)}), gn_reduce_batched launches {stacked_launches} (the "
+          f"three coarse starts stacked: 10 x {N_FRAMES - 1} = {10 * (N_FRAMES - 1)}), "
+          f"gated_match launches {gated_launches} (one a "
           f"keyframe insert with a map: keyframes - 1 = {keyframes - 1}), "
           f"hamming_top2 launches {top2_launches} (no frame lost: 0)")
     print(f"lost {sess.state.lost}, keyframes {keyframes} of "
@@ -636,7 +760,8 @@ def main_phase(cfg, with_control: bool = False) -> dict:
                   f"{1e3 / c.mean():.2f} frames/s, p50 {np.percentile(c, 50):.3f} ms"
                   for c in control))
 
-    check(launches == 42 * (N_FRAMES - 1), "main path did not run the kernel 42x a frame")
+    check(launches == 12 * (N_FRAMES - 1) and stacked_launches == 10 * (N_FRAMES - 1),
+          "main path did not run the kernel 10 + 12 times a frame")
     check(keyframes > 1 and keyframes == int(m.n_kf), f"keyframes {keyframes}")
     check(gated_launches == keyframes - 1,
           f"{gated_launches} gated_match launches for {keyframes} keyframes")
@@ -655,7 +780,13 @@ def main_phase(cfg, with_control: bool = False) -> dict:
         ts2, est2 = load_trajectory_tum(path)
     check(np.allclose(ts2, ts, atol=1e-6) and np.allclose(est2, est, atol=1e-5),
           "TUM export does not reload to the same poses")
-    return {"launches": launches, "gated_launches": gated_launches, "fps": fps,
+    check(abs(keyframes - SWEEP_KEYFRAMES) <= 1, f"{keyframes} keyframes on the sweep")
+    check(abs(100 * ate - SWEEP_ATE_CM) <= 0.05,
+          f"ATE {100 * ate:.3f} cm is not within 0.05 cm of {SWEEP_ATE_CM} cm")
+    if with_profile:
+        _profile_tracked_frames(cfg, frames)
+    return {"launches": launches, "stacked_launches": stacked_launches,
+            "gated_launches": gated_launches, "fps": fps,
             "ate": ate, "session": sess, "frames": frames, "gt": gt}
 
 
@@ -682,7 +813,8 @@ def lost_phase(cfg, run: dict) -> dict:
     frames[LOST_AT] = (window, rgb)
 
     sess = SLAMSession(cfg)
-    tg.gn_reduce.launches = th.gated_match.launches = th.hamming_top2.launches = 0
+    tg.gn_reduce.launches = tg.gn_reduce_batched.launches = 0
+    th.gated_match.launches = th.hamming_top2.launches = 0
     _sweep(sess, frames, cam.fps)
     launches = th.hamming_top2.launches
     st = sess.state
@@ -698,7 +830,8 @@ def lost_phase(cfg, run: dict) -> dict:
           f"{launches} hamming_top2 launches for {st.lost} lost frames")
     check(th.gated_match.launches == st.keyframes - 1,
           f"{th.gated_match.launches} gated_match launches for {st.keyframes} keyframes")
-    check(tg.gn_reduce.launches == 42 * (LOST_FRAMES - 1), "gn_reduce launches")
+    check(tg.gn_reduce.launches == 12 * (LOST_FRAMES - 1)
+          and tg.gn_reduce_batched.launches == 10 * (LOST_FRAMES - 1), "gn_reduce launches")
     check(sess.stats[-1].tracking_ok, "tracking did not come back")
     check(est.shape == (LOST_FRAMES, 4, 4) and np.isfinite(est).all(), "poses")
     check(ate <= ATE_LIMIT_M, f"ATE {ate:.4f} m above {ATE_LIMIT_M} m")
@@ -857,21 +990,37 @@ def _batch_run(cfg, frames, n_seq: int):
     return bs, ms, np.array(inserted)
 
 
-def _profile_tracked_steps(cfg, frames, n_seq: int, n_steps: int = 5) -> None:
-    """Trace `n_steps` tracked steps (keyframe thresholds out of reach, so
-    no step inserts) of a BatchSession of `n_seq` sequences and print what
-    the device did a step."""
-    import dataclasses
-
+def _traced(fn):
+    """Run `fn()` under torch.profiler -> (device ms, device operations,
+    cudaLaunchKernel calls, host ms of the traced span, the GN kernel's
+    device ms)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from slam_rgbd_tpu_torch import BatchSession
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms_ = 1e3 * (time.perf_counter() - t0)
+    dev_us, dev_ops, launches, gn_us = 0.0, 0, 0, 0.0
+    for ev in prof.key_averages():
+        # device-side events (kernels, copies, fills) only: a host-side op
+        # event carries its kernels' time a second time
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            dev_us += us
+            dev_ops += ev.count
+            if "gn_kernel" in ev.key:
+                gn_us += us
+        elif ev.key == "cudaLaunchKernel":
+            launches += ev.count
+    check(dev_us > 0, "the profiler recorded no device time")
+    return dev_us / 1e3, dev_ops, launches, host_ms_, gn_us / 1e3
 
-    never = dataclasses.replace(cfg.keyframes, kf_min_trans=1e9, kf_min_rot_deg=1e9,
-                                kf_min_inlier_ratio=0.0)
-    bs = BatchSession(dataclasses.replace(cfg, keyframes=never), n_seq)
-    step = lambda i: bs.process_frames(i / cfg.camera.fps, frames[i][0][:n_seq],
-                                       frames[i][1][:n_seq])
+
+def _profile_tracked(label: str, step, what: str, n_steps: int = 5) -> None:
+    """Warm `step(i)` up, time `n_steps` calls without the profiler, trace
+    `n_steps` more and print what the device did a call."""
     for i in range(STEADY_FROM):
         step(i)
     torch.cuda.synchronize()
@@ -880,28 +1029,68 @@ def _profile_tracked_steps(cfg, frames, n_seq: int, n_steps: int = 5) -> None:
         step(i)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def traced_steps():
         for i in range(STEADY_FROM + n_steps, STEADY_FROM + 2 * n_steps):
             step(i)
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    dev_us, dev_ops, launches = 0.0, 0, 0
-    for ev in prof.key_averages():
-        # device-side events (kernels, copies, fills) only: a host-side op
-        # event carries its kernels' time a second time
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            dev_us += ev.self_cuda_time_total if us is None else us
-            dev_ops += ev.count
-        elif ev.key == "cudaLaunchKernel":
-            launches += ev.count
-    check(dev_us > 0, "the profiler recorded no device time")
-    print(f"profile, B={n_seq}, {n_steps} tracked steps: {dev_ops / n_steps:.0f} device "
-          f"operations a step ({launches / n_steps:.0f} cudaLaunchKernel), device time "
-          f"{dev_us / 1e3 / n_steps:.3f} ms a step, step {traced_ms:.2f} ms under the "
-          f"profiler ({plain_ms:.2f} ms without): device busy share "
-          f"{dev_us / 1e3 / n_steps / traced_ms:.4f}")
+
+    dev_ms, dev_ops, launches, traced_ms, gn_ms = (x / n_steps for x in _traced(traced_steps))
+    print(f"profile, {label}, {n_steps} tracked {what}s: {dev_ops:.0f} device "
+          f"operations a {what} ({launches:.0f} cudaLaunchKernel), device time "
+          f"{dev_ms:.3f} ms a {what} (the GN kernel {gn_ms:.3f} ms of it), {what} "
+          f"{traced_ms:.2f} ms under the profiler ({plain_ms:.2f} ms without): device "
+          f"busy share {dev_ms / traced_ms:.4f}")
+
+
+def _never_a_keyframe(cfg):
+    """`cfg` with the keyframe thresholds out of reach: every call after the
+    bootstrap only tracks."""
+    import dataclasses
+
+    never = dataclasses.replace(cfg.keyframes, kf_min_trans=1e9, kf_min_rot_deg=1e9,
+                                kf_min_inlier_ratio=0.0)
+    return dataclasses.replace(cfg, keyframes=never)
+
+
+def _profile_tracked_frames(cfg, frames) -> None:
+    """Trace tracked frames of a single session, and beside them the flow
+    shift of the coarsest level as a tracked frame runs it (ten times, for
+    the three stacked starts)."""
+    from slam_rgbd_tpu_torch import SLAMSession
+    from slam_rgbd_tpu_torch.core import camera
+    from slam_rgbd_tpu_torch.odometry import icp
+
+    sess = SLAMSession(_never_a_keyframe(cfg))
+    _profile_tracked("single session", lambda i: sess.process_frame(
+        i / cfg.camera.fps, *frames[i]), "frame")
+    icfg = cfg.icp
+    k0 = icfg.levels - 1
+    lcam = cfg.camera.scaled(2.0 ** k0)
+    pyr = camera.build_frame_pyramid(frames[0][0], cfg.camera, levels=icfg.levels,
+                                     rgb=frames[0][1])
+    verts = pyr[k0]["vertices"]
+    starts = torch.eye(4, device=verts.device).repeat(3, 1, 1)
+
+    def flow_shifts():
+        for _ in range(icfg.iters[0]):
+            _, up, vp, _ = icp._project_level(starts, verts, lcam)
+            icp.flow_shift(up, vp, lcam.height, lcam.width)
+
+    flow_shifts()
+    dev_ms, dev_ops, _, host, _ = _traced(flow_shifts)
+    print(f"profile, the coarsest level's flow shift as a tracked frame runs it "
+          f"({icfg.iters[0]} x `_project_level` + `flow_shift` for 3 starts at "
+          f"{lcam.height}x{lcam.width}): {dev_ops} device operations, device time "
+          f"{dev_ms:.3f} ms, {host:.2f} ms of host time under the profiler")
+
+
+def _profile_tracked_steps(cfg, frames, n_seq: int) -> None:
+    """Trace tracked steps of a BatchSession of `n_seq` sequences."""
+    from slam_rgbd_tpu_torch import BatchSession
+
+    bs = BatchSession(_never_a_keyframe(cfg), n_seq)
+    _profile_tracked(f"B={n_seq}", lambda i: bs.process_frames(
+        i / cfg.camera.fps, frames[i][0][:n_seq], frames[i][1][:n_seq]), "step")
 
 
 def batch_phase(cfg, with_profile: bool = False) -> dict:
@@ -966,8 +1155,8 @@ def batch_phase(cfg, with_profile: bool = False) -> dict:
     step_ms, ins = ms[steady], inserted[steady]
     tracked, with_insert = step_ms[~ins], step_ms[ins]
     steps_s = len(step_ms) / (step_ms.sum() / 1e3)
-    print(f"gn_reduce_batched launches {batched} (expected 42 x {BATCH_FRAMES - 1} = "
-          f"{42 * (BATCH_FRAMES - 1)}), single gn_reduce launches {single} (0), "
+    print(f"gn_reduce_batched launches {batched} (expected 22 x {BATCH_FRAMES - 1} = "
+          f"{22 * (BATCH_FRAMES - 1)}), single gn_reduce launches {single} (0), "
           f"gated_match launches {gated} (one an insert with a map: "
           f"{int((kf - 1).sum())}), hamming_top2 launches {top2} (two a loop "
           f"verification or relocalization)")
@@ -991,8 +1180,8 @@ def batch_phase(cfg, with_profile: bool = False) -> dict:
         watch.report(n) for n in ("_batch_features", "_batch_ba", "_batch_loop_close",
                                   "optimize_pose_graph")))
 
-    check(batched == 42 * (BATCH_FRAMES - 1),
-          "the batch session did not run the batched kernel 42x a tracked step")
+    check(batched == 22 * (BATCH_FRAMES - 1),
+          "the batch session did not run the batched kernel 22x a tracked step")
     check(single == 0, f"{single} single gn_reduce launches from the batch session")
     check(gated == int((kf - 1).sum()), f"{gated} gated_match launches for keyframes {kf}")
     check(top2 > 0 and top2 % 2 == 0, f"{top2} hamming_top2 launches")
@@ -1032,14 +1221,16 @@ def main() -> int:
 
     cfg = astra_default_config()
     build_phase()
+    launch_floor_phase()
     gn = gn_kernel_phase(cfg)
     gnb = gn_batched_kernel_phase(cfg)
     ham = hamming_kernel_phase(cfg)
     small_phase(cfg)
-    run = main_phase(cfg, with_control)
+    run = main_phase(cfg, with_control, with_profile)
     reloc = reloc_phase(run)
     lost = lost_phase(cfg, run)
     main_launches, gated_launches = run["launches"], run["gated_launches"]
+    stacked_launches = run["stacked_launches"]
     del run  # the sweep's frames and map
     torch.cuda.empty_cache()
     small_batch_phase(cfg)
@@ -1058,7 +1249,7 @@ def main() -> int:
              **{k: full[k] for k in timing}, library_ms=None),
         dict(name="gn_reduce_batched", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:493",
-             launches=batch["batched"], max_abs_err=gnb["max_err"],
+             launches=stacked_launches + batch["batched"], max_abs_err=gnb["max_err"],
              **{k: full_b[k] for k in timing}, library_ms=None),
         dict(name="gated_match", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:291",

@@ -39,7 +39,7 @@ class EdgeList:
     valid: torch.Tensor  # (E,) bool
 
     @classmethod
-    def empty(cls, capacity: int, device="cpu") -> "EdgeList":
+    def empty(cls, capacity: int, device) -> "EdgeList":
         return cls(
             i=torch.zeros(capacity, dtype=torch.int32, device=device),
             j=torch.zeros(capacity, dtype=torch.int32, device=device),

@@ -74,7 +74,7 @@ class MapState:
         return self.kf_pose.device
 
 
-def empty_map(cfg: KeyframeConfig, n_keypoints: int, device="cpu") -> MapState:
+def empty_map(cfg: KeyframeConfig, n_keypoints: int, device) -> MapState:
     M, P, K = cfg.max_keyframes, cfg.max_map_points, n_keypoints
 
     def zeros(shape, dtype=torch.float32):

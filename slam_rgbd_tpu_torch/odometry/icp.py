@@ -1,10 +1,14 @@
 """Dense projective ICP odometry (point-to-plane + photometric) in torch.
 
 Counterpart of `slam_rgbd_tpu/odometry/icp.py`. Every GN iteration at every
-level is one call of `ops.gn_reduce.gn_reduce`: the hand-written kernel on a
-CUDA tensor, its plain torch version on a CPU tensor. The dominant-flow
-shift, the damped 6x6 solve and the pose products are plain torch, as they
-are plain XLA in the reference.
+level is one call of `ops.gn_reduce.gn_step` / `gn_step_batched`: on a CUDA
+tensor one launch of the hand-written kernel, which reduces the normal
+equations and goes on to the damped 6x6 solve and the pose update; on a CPU
+tensor the plain reduction followed by `_apply_update`. The up to three
+starts of the coarsest level are problems of one batched call over shared
+planes, so the default schedule (iters (10, 7, 5), 3 starts) is 10 + 7 + 5
+= 22 calls a frame. The dominant-flow shift is plain torch, as it is plain
+XLA in the reference.
 
 The dominant-flow (mu) schedule is the reference's on its kernel path
 (`icp.py:316-373`): at the coarsest level mu is re-estimated every GN
@@ -15,9 +19,10 @@ stencil path does.
 
 `icp_align_batched` / `track_frame_batched` are the same solve for B
 independent problems with a leading B on every pose and pyramid leaf: one
-`ops.gn_reduce.gn_reduce_batched` call per GN iteration for all B, one
-batched 6x6 factorization, and per-problem flow shifts, start selection and
-motion clamp. B sequences so queue about as many device operations as one.
+`gn_step_batched` call per GN iteration for all B (at the coarsest level for
+all 3 x B starts, the three of a sequence sharing its planes), and
+per-problem flow shifts, start selection and motion clamp. B sequences so
+queue about as many device operations as one.
 
 Nothing here copies to the host, so tracking a frame queues its work on
 the device and returns.
@@ -92,7 +97,8 @@ def level_planes(level: dict) -> torch.Tensor:
 
 
 def _apply_update(T, H, g, inliers, cfg: ICPConfig) -> torch.Tensor:
-    """Damped 6x6 GN solve and left-multiplicative pose update.
+    """Damped 6x6 GN solve and left-multiplicative pose update: the plain
+    version of what the kernel does at the end of a `gn_step` launch.
 
     A failed factorization, a non-finite step or too few inliers gives the
     identity step, decided on the device; with a leading B, per problem.
@@ -112,6 +118,40 @@ def _per_level_mu(radius: int, h: int, w: int) -> bool:
     return radius <= 8 and min(h, w) >= 32
 
 
+def _kernel_planes(src_level: dict, tgt_level: dict):
+    """(src, tgt) of one pyramid level as `ops.gn_reduce` takes them: the
+    source's first 8 planes and the target's 10."""
+    src_p = level_planes(src_level)[..., : gn_ops.SRC_CHANNELS, :, :].contiguous()
+    return src_p, level_planes(tgt_level)
+
+
+def _run_level(T, inliers, sq_sum, k: int, levels: int, verts, src_p, tgt_p,
+               cam: CameraIntrinsics, cfg: ICPConfig):
+    """All GN iterations of pyramid level k from pose(s) T -> (T, inliers,
+    sq_sum) of the last one (the ones passed in where the level has no
+    iteration). T (4, 4) is one problem; T (P, 4, 4) are P problems over the
+    G plane sets that `src_p` / `tgt_p` lead with (see
+    `ops.gn_reduce`), and `verts` then holds each problem's source vertices,
+    (P, h, w, 3)."""
+    level_cam = cam.scaled(2.0 ** k)
+    n_iters, radius = _level_schedule(cfg, levels, k)
+    h, w = tgt_p.shape[-2:]
+    step = gn_ops.gn_step_batched if T.dim() == 3 else gn_ops.gn_step
+    per_iter_mu = k == levels - 1 or not _per_level_mu(radius, h, w)
+    if not per_iter_mu:
+        _, up, vp, _ = _project_level(T, verts, level_cam)
+        mu = flow_shift(up, vp, h, w)
+    if n_iters == 0 and inliers is None:
+        inliers = torch.zeros(T.shape[:-2], dtype=torch.int32, device=T.device)
+        sq_sum = torch.zeros(T.shape[:-2], dtype=torch.float32, device=T.device)
+    for _ in range(n_iters):
+        if per_iter_mu:
+            _, up, vp, _ = _project_level(T, verts, level_cam)
+            mu = flow_shift(up, vp, h, w)
+        T, _, _, inliers, sq_sum = step(T, mu, src_p, tgt_p, level_cam, cfg, radius)
+    return T, inliers, sq_sum
+
+
 def icp_align(
     src_pyr: tuple,
     tgt_pyr: tuple,
@@ -127,53 +167,32 @@ def icp_align(
     """
     levels = len(src_pyr)
     dev = T_init.device
-
-    def run_level(T, inliers, sq_sum, k, src_p, tgt_p):
-        level_cam = cam.scaled(2.0 ** k)
-        n_iters, radius = _level_schedule(cfg, levels, k)
-        h, w = tgt_pyr[k]["valid"].shape
-        verts = src_pyr[k]["vertices"]
-        per_iter_mu = k == levels - 1 or not _per_level_mu(radius, h, w)
-        if not per_iter_mu:
-            _, up, vp, _ = _project_level(T, verts, level_cam)
-            mu = flow_shift(up, vp, h, w)
-        for _ in range(n_iters):
-            if per_iter_mu:
-                _, up, vp, _ = _project_level(T, verts, level_cam)
-                mu = flow_shift(up, vp, h, w)
-            H, g, inliers, sq_sum = gn_ops.gn_reduce(
-                T, mu, src_p, tgt_p, level_cam, cfg, radius
-            )
-            T = _apply_update(T, H, g, inliers, cfg)
-        return T, inliers, sq_sum
-
-    planes = [
-        (level_planes(s)[: gn_ops.SRC_CHANNELS], level_planes(t))
-        for s, t in zip(src_pyr, tgt_pyr)
-    ]
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+    planes = [_kernel_planes(s, t) for s, t in zip(src_pyr, tgt_pyr)]
 
     # Coarsest level from up to three starts (motion prior, identity,
-    # reversed prior); the one with most inliers seeds the finer levels.
+    # reversed prior), all in one batched call an iteration over the one
+    # set of planes; the start with most inliers (the first among equals,
+    # as jnp.argmax) seeds the finer levels.
     k0 = levels - 1
     n_hyp = min(max(cfg.hypotheses, 1), 3)
-    cands = [
-        T_init,
-        torch.eye(4, dtype=T_init.dtype, device=dev),
-        se3.normalize_rotation(se3.inverse(T_init)),
-    ][:n_hyp]
-    outs = [run_level(c, zero_i, zero_f, k0, *planes[k0]) for c in cands]
     if n_hyp > 1:
-        inl = torch.stack([o[1] for o in outs])
-        best = torch.argmax(inl)  # first maximum, as jnp.argmax
-        T = torch.stack([o[0] for o in outs])[best]
-        inliers = inl[best]
-        sq_sum = torch.stack([o[2] for o in outs])[best]
+        cands = torch.stack([
+            T_init,
+            torch.eye(4, dtype=T_init.dtype, device=dev),
+            se3.normalize_rotation(se3.inverse(T_init)),
+        ][:n_hyp])
+        shared = [x.expand((n_hyp,) + x.shape) for x in planes[k0]]
+        Ts, inl, sq = _run_level(
+            cands, None, None, k0, levels, src_pyr[k0]["vertices"], *shared, cam, cfg)
+        best = torch.argmax(inl)
+        T, inliers, sq_sum = Ts[best], inl[best], sq[best]
     else:
-        T, inliers, sq_sum = outs[0]
+        T, inliers, sq_sum = _run_level(
+            T_init, None, None, k0, levels, src_pyr[k0]["vertices"], *planes[k0],
+            cam, cfg)
     for k in range(levels - 2, -1, -1):
-        T, inliers, sq_sum = run_level(T, inliers, sq_sum, k, *planes[k])
+        T, inliers, sq_sum = _run_level(
+            T, inliers, sq_sum, k, levels, src_pyr[k]["vertices"], *planes[k], cam, cfg)
 
     valid_src = torch.sum(src_pyr[0]["valid"])
     return ICPResult(
@@ -207,54 +226,32 @@ def icp_align_batched(
     levels = len(src_pyr)
     dev = T_init.device
     n_b = T_init.shape[0]
+    planes = [_kernel_planes(s, t) for s, t in zip(src_pyr, tgt_pyr)]
 
-    def run_level(T, inliers, sq_sum, k, src_p, tgt_p):
-        level_cam = cam.scaled(2.0 ** k)
-        n_iters, radius = _level_schedule(cfg, levels, k)
-        h, w = tgt_pyr[k]["valid"].shape[-2:]
-        verts = src_pyr[k]["vertices"]
-        per_iter_mu = k == levels - 1 or not _per_level_mu(radius, h, w)
-        if not per_iter_mu:
-            _, up, vp, _ = _project_level(T, verts, level_cam)
-            mu = flow_shift(up, vp, h, w)
-        for _ in range(n_iters):
-            if per_iter_mu:
-                _, up, vp, _ = _project_level(T, verts, level_cam)
-                mu = flow_shift(up, vp, h, w)
-            H, g, inliers, sq_sum = gn_ops.gn_reduce_batched(
-                T, mu, src_p, tgt_p, level_cam, cfg, radius
-            )
-            T = _apply_update(T, H, g, inliers, cfg)
-        return T, inliers, sq_sum
-
-    planes = [
-        (level_planes(s)[:, : gn_ops.SRC_CHANNELS].contiguous(), level_planes(t))
-        for s, t in zip(src_pyr, tgt_pyr)
-    ]
-    zero_i = torch.zeros((n_b,), dtype=torch.int32, device=dev)
-    zero_f = torch.zeros((n_b,), dtype=torch.float32, device=dev)
-
+    # The coarsest level's starts as problems b * n_hyp + s of one call: the
+    # n_hyp starts of sequence b read plane set b.
     k0 = levels - 1
     n_hyp = min(max(cfg.hypotheses, 1), 3)
-    cands = [
+    cands = torch.stack([
         T_init,
-        torch.eye(4, dtype=T_init.dtype, device=dev).expand(n_b, 4, 4).contiguous(),
+        torch.eye(4, dtype=T_init.dtype, device=dev).expand(n_b, 4, 4),
         se3.normalize_rotation(se3.inverse(T_init)),
-    ][:n_hyp]
-    outs = [run_level(c, zero_i, zero_f, k0, *planes[k0]) for c in cands]
+    ][:n_hyp], dim=1).reshape(n_b * n_hyp, 4, 4)
+    verts = src_pyr[k0]["vertices"]
     if n_hyp > 1:
-        inl = torch.stack([o[1] for o in outs])  # (n_hyp, B)
-        order = torch.arange(n_hyp, device=dev)[:, None]
+        verts = verts.repeat_interleave(n_hyp, dim=0)
+    T, inliers, sq_sum = _run_level(
+        cands, None, None, k0, levels, verts, *planes[k0], cam, cfg)
+    if n_hyp > 1:
+        inl = inliers.view(n_b, n_hyp)
+        order = torch.arange(n_hyp, device=dev)
         # per problem the first start with the most inliers, as jnp.argmax
-        best = torch.where(inl == inl.amax(dim=0), order, n_hyp).amin(dim=0)
-        col = torch.arange(n_b, device=dev)
-        T = torch.stack([o[0] for o in outs])[best, col]
-        inliers = inl[best, col]
-        sq_sum = torch.stack([o[2] for o in outs])[best, col]
-    else:
-        T, inliers, sq_sum = outs[0]
+        best = torch.where(inl == inl.amax(dim=1, keepdim=True), order, n_hyp).amin(dim=1)
+        pick = torch.arange(n_b, device=dev) * n_hyp + best
+        T, inliers, sq_sum = T[pick], inliers[pick], sq_sum[pick]
     for k in range(levels - 2, -1, -1):
-        T, inliers, sq_sum = run_level(T, inliers, sq_sum, k, *planes[k])
+        T, inliers, sq_sum = _run_level(
+            T, inliers, sq_sum, k, levels, src_pyr[k]["vertices"], *planes[k], cam, cfg)
 
     valid_src = torch.sum(src_pyr[0]["valid"], dim=(-2, -1))
     return ICPResult(

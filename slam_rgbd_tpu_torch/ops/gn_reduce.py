@@ -1,8 +1,12 @@
-"""Fused Gauss-Newton reduction of dense ICP: plain torch version + kernel.
+"""Fused Gauss-Newton iteration of dense ICP: plain torch versions + kernel.
 
-Counterpart of `slam_rgbd_tpu/ops/icp_pallas.gn_reduce`. One call evaluates
-one GN iteration of projective point-to-plane + photometric alignment at one
-pyramid level and returns (H (6, 6), g (6,), inliers () int32, sq_sum ()).
+Counterpart of `slam_rgbd_tpu/ops/icp_pallas.gn_reduce` / `gn_reduce_batched`.
+`gn_reduce` evaluates one GN reduction of projective point-to-plane +
+photometric alignment at one pyramid level and returns (H (6, 6), g (6,),
+inliers () int32, sq_sum ()). `gn_step` is the same call followed by what
+`odometry/icp._apply_update` does with the result (damped 6x6 Cholesky
+solve, identity step on a degenerate system, se3 exp, product with T,
+rotation normalisation) and returns (T_next (4, 4), H, g, inliers, sq_sum).
 
 Planes are channel-first float32 at the level's own size, with no padding:
 
@@ -22,19 +26,31 @@ weights' product (`wsum`) and the weighted validity both exceed 0.999
 invalid and still let the pixel pass; its channels are then sampled with
 that weight, as in the reference.
 
-`gn_reduce` dispatches on the device of `src`: a CPU tensor goes to
-`gn_reduce_reference`, a CUDA tensor to the hand-written kernel in
-`csrc/gn_reduce.cu`, and any error there raises.
+Every entry point dispatches on the device of `src`: a CPU tensor goes to
+the plain version (`*_reference`), a CUDA tensor to the hand-written kernel
+in `csrc/gn_reduce.cu`, and any error there raises. On the card a call is
+one kernel launch and no other device operation: the reduction across
+thread blocks and, for `gn_step`, the pose update happen inside it.
 
-`gn_reduce_batched` (counterpart of `icp_pallas.gn_reduce_batched`) does the
-same for B independent problems, every argument with a leading B, in one
-launch of the same kernel with the problem index on the grid. Problem b of
-its result equals a single `gn_reduce` call on that problem's inputs bit for
-bit, on the card as in the plain version.
+`gn_reduce_batched` / `gn_step_batched` do the same for B independent
+problems in one launch: T (B, 4, 4), mu (B, 2) and results with a leading
+B. The planes lead with G sets, G dividing B, and problem b reads set
+b // (B // G): G = B gives every problem its own planes, G = 1 (or a batch
+made by `expand`) one set for all, and G = B / 3 lets the three coarse
+starts of each sequence share that sequence's planes. Problem b of the
+result equals a single call on that problem's inputs bit for bit, on the
+card as in the plain versions.
+
+Only the inner (C, H, W) of the planes and the inner (4, 4) / (2,) of T and
+mu must be contiguous; the kernel takes the stride between problems. All
+results of one call are views of one freshly allocated tensor, which no
+later call writes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -45,12 +61,17 @@ from slam_rgbd_tpu_torch.core.config import CameraIntrinsics, ICPConfig
 SRC_CHANNELS = 8
 TGT_CHANNELS = 10
 
+_OUT_FLOATS = 64   # a problem: H 36, g 6, sq_sum, inliers, T_next 16, 4 unused
+_PARTIAL_ROW = 29  # a block's partials: 28 sums and the count
+_BLOCK_PIXELS = 1024  # pixels a thread block takes: 256 threads, 4 each
+
 
 def _f32(x: float) -> float:
     """Round a Python float to the nearest float32, as the kernel sees it."""
     return float(np.float32(x))
 
 
+@functools.lru_cache(maxsize=None)
 def _constants(cam: CameraIntrinsics, cfg: ICPConfig) -> dict:
     return {
         "fx": _f32(cam.fx), "fy": _f32(cam.fy),
@@ -61,6 +82,7 @@ def _constants(cam: CameraIntrinsics, cfg: ICPConfig) -> dict:
         "huber": _f32(cfg.huber_delta),
         "rgb_w": _f32(cfg.rgb_weight),
         "rgb_huber": _f32(cfg.rgb_huber),
+        "damping": _f32(cfg.damping),
     }
 
 
@@ -168,30 +190,124 @@ def gn_reduce_reference(T, mu, src, tgt, cam: CameraIntrinsics,
 
 
 def _check_inputs(T, mu, src, tgt, radius: int, batched: bool = False) -> None:
-    """Raise on what the kernel does not take. `batched`: every tensor has
-    one leading problem axis of the same length."""
+    """Raise on what the kernel does not take. `batched`: T and mu lead with
+    the problems, the planes with the plane sets."""
     fn = "gn_reduce_batched" if batched else "gn_reduce"
+    lead = 1 if batched else 0
     for name, x in (("T", T), ("mu", mu), ("src", src), ("tgt", tgt)):
         if x.device != src.device:
             raise ValueError(f"{fn}: {name} on {x.device}, src on {src.device}")
         if x.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-    lead = tuple(src.shape[:1]) if batched else ()
-    if src.dim() != len(lead) + 3 or src.shape[-3] != SRC_CHANNELS:
+        if x.dim() <= lead or not (x[0] if batched else x).is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous within a problem")
+    if src.dim() != lead + 3 or src.shape[-3] != SRC_CHANNELS:
         raise ValueError(
-            f"{fn}: src must be {'(B, ' if batched else '('}8, H, W), "
+            f"{fn}: src must be {'(G, ' if batched else '('}8, H, W), "
             f"got {tuple(src.shape)}")
-    if tuple(T.shape) != lead + (4, 4) or tuple(mu.shape) != lead + (2,):
+    sets = tuple(src.shape[:lead])
+    hw = tuple(src.shape[-2:])
+    problems = tuple(T.shape[:lead])
+    if tuple(T.shape) != problems + (4, 4) or tuple(mu.shape) != problems + (2,):
         raise ValueError(f"{fn}: T {tuple(T.shape)}, mu {tuple(mu.shape)}")
-    want = lead + (TGT_CHANNELS,) + tuple(src.shape[-2:])
-    if tuple(tgt.shape) != want:
-        raise ValueError(f"{fn}: tgt must be {want}, got {tuple(tgt.shape)}")
-    if batched and not 1 <= lead[0] <= 65535:
-        raise ValueError(f"{fn}: 1 to 65535 problems a launch, got {lead[0]}")
+    if tuple(tgt.shape) != sets + (TGT_CHANNELS,) + hw:
+        raise ValueError(
+            f"{fn}: tgt must be {sets + (TGT_CHANNELS,) + hw}, got {tuple(tgt.shape)}")
+    if batched:
+        if not 1 <= problems[0] <= 65535:
+            raise ValueError(f"{fn}: 1 to 65535 problems a launch, got {problems[0]}")
+        if sets[0] < 1 or problems[0] % sets[0]:
+            raise ValueError(
+                f"{fn}: {sets[0]} plane sets do not divide {problems[0]} problems")
     if radius < 0:
         raise ValueError(f"{fn}: radius must be >= 0, got {radius}")
+
+
+# ---- the kernel's launch ---------------------------------------------------
+
+
+class _Params(ctypes.Structure):
+    """`GnParams` of csrc/gn_reduce.cu."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("height", "width", "radius")] + [
+        (n, ctypes.c_float) for n in
+        ("fx", "fy", "cx", "cy", "min_depth", "max_dist_sq", "cos_thresh",
+         "huber", "rgb_w", "rgb_huber", "damping")]
+
+
+@functools.lru_cache(maxsize=None)
+def _params(cam: CameraIntrinsics, cfg: ICPConfig, radius: int, h: int, w: int):
+    """(launch parameters, thread blocks a problem), made once for a
+    (cam, cfg) pair at a level. The block count, like the kernel's map from
+    pixels to threads, depends on (H, W) only: problem b of a batched launch
+    must sum as a single launch does."""
+    return _Params(h, w, radius, **_constants(cam, cfg)), -(-h * w // _BLOCK_PIXELS)
+
+
+_workspaces: dict = {}
+
+
+def _workspace(device, stream: int, n_blocks: int, n_b: int):
+    """(partial table, ticket counters) of a launch shape, reused by every
+    later launch of that shape on the stream and kept for the life of the
+    process. `stream` is the stream's handle: launches on one stream run in
+    order, also where a new stream has taken over a destroyed one's handle,
+    and a launch leaves the counters zeroed once its last block has run. A
+    launch that CUDA refuses never starts and so leaves them zeroed as well;
+    a kernel that aborts midway poisons the CUDA context, after which no
+    launch of the process succeeds anyway."""
+    key = (device.index, stream, n_blocks, n_b)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = (
+            torch.empty(n_b * n_blocks * _PARTIAL_ROW, dtype=torch.float32, device=device),
+            torch.zeros(n_b, dtype=torch.int32, device=device),
+        )
+    return ws
+
+
+def _launch(T, mu, src, tgt, cam, cfg, radius, batched: bool, step: bool):
+    """One launch of the kernel on the current stream (no host sync) ->
+    the (B, 64) or (64,) tensor it wrote."""
+    if src.device.type != "cuda":
+        raise ValueError(f"gn_reduce: no kernel for device {src.device}")
+    _check_inputs(T, mu, src, tgt, radius, batched)
+    from slam_rgbd_tpu_torch.ops import _build
+
+    lib = _build.load()
+    dev = src.device
+    h, w = src.shape[-2:]
+    params, n_blocks = _params(cam, cfg, radius, h, w)
+    if batched:
+        n_b = T.shape[0]
+        share = n_b // src.shape[0]
+        strides = (T.stride(0), mu.stride(0), src.stride(0), tgt.stride(0))
+        out = torch.empty((n_b, _OUT_FLOATS), dtype=torch.float32, device=dev)
+    else:
+        n_b, share, strides = 1, 1, (0, 0, 0, 0)
+        out = torch.empty(_OUT_FLOATS, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, counters = _workspace(dev, stream, n_blocks, n_b)
+        err = lib.gn_reduce_launch(
+            ctypes.byref(params), T.data_ptr(), strides[0], mu.data_ptr(), strides[1],
+            src.data_ptr(), strides[2], tgt.data_ptr(), strides[3],
+            n_b, share, int(step), n_blocks, scratch.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), stream,
+        )
+    _build.check(err, "gn_reduce launch")
+    return out
+
+
+def _reduction(out):
+    """(H, g, inliers, sq_sum) views of a launch's output."""
+    return (out[..., :36].view(out.shape[:-1] + (6, 6)), out[..., 36:42],
+            out[..., 43].view(torch.int32), out[..., 42])
+
+
+def _pose(out):
+    return out[..., 44:60].view(out.shape[:-1] + (4, 4))
 
 
 def gn_reduce(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
@@ -204,53 +320,65 @@ def gn_reduce(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
     """
     if src.device.type == "cpu":
         return gn_reduce_reference(T, mu, src, tgt, cam, cfg, radius)
-    if src.device.type != "cuda":
-        raise ValueError(f"gn_reduce: no kernel for device {src.device}")
-    _check_inputs(T, mu, src, tgt, radius)
-    from slam_rgbd_tpu_torch.ops import _build
-
-    lib = _build.load()
-    _, h, w = src.shape
-    c = _constants(cam, cfg)
-    scal = torch.cat([T.reshape(16), mu])
-    scratch = torch.empty(
-        lib.gn_reduce_scratch_floats(h, w), dtype=torch.float32, device=src.device
-    )
-    out = torch.empty(43, dtype=torch.float32, device=src.device)
-    inliers = torch.empty((), dtype=torch.int32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.gn_reduce_launch(
-            scal.data_ptr(), src.data_ptr(), tgt.data_ptr(), h, w, radius,
-            c["fx"], c["fy"], c["cx"], c["cy"], c["min_depth"],
-            c["max_dist_sq"], c["cos_thresh"], c["huber"], c["rgb_w"],
-            c["rgb_huber"], scratch.data_ptr(), out.data_ptr(),
-            inliers.data_ptr(), stream,
-        )
-    _build.check(err, "gn_reduce launch")
+    out = _launch(T, mu, src, tgt, cam, cfg, radius, False, False)
     gn_reduce.launches += 1
-    return out[:36].view(6, 6), out[36:42], inliers, out[42]
+    return _reduction(out)
 
 
 gn_reduce.launches = 0
 
 
+def gn_step(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
+            radius: int):
+    """One GN iteration -> (T_next (4,4), H, g, inliers, sq_sum): `gn_reduce`
+    and the damped solve and pose update of `odometry/icp._apply_update` in
+    the same launch. Counts in `gn_reduce.launches`."""
+    if src.device.type == "cpu":
+        return gn_step_reference(T, mu, src, tgt, cam, cfg, radius)
+    out = _launch(T, mu, src, tgt, cam, cfg, radius, False, True)
+    gn_reduce.launches += 1
+    return (_pose(out),) + _reduction(out)
+
+
+def gn_step_reference(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
+                      radius: int):
+    """Plain version of `gn_step`: the plain reduction, then
+    `odometry/icp._apply_update`."""
+    from slam_rgbd_tpu_torch.odometry.icp import _apply_update
+
+    H, g, inliers, sq_sum = gn_reduce_reference(T, mu, src, tgt, cam, cfg, radius)
+    return _apply_update(T, H, g, inliers, cfg), H, g, inliers, sq_sum
+
+
+def _each_problem(fn, T, mu, src, tgt, cam, cfg, radius):
+    """`fn` on each problem of a batch in turn, so that problem b equals the
+    single plain version on its inputs exactly."""
+    _check_inputs(T, mu, src, tgt, radius, batched=True)
+    share = T.shape[0] // src.shape[0]
+    outs = [fn(T[b], mu[b], src[b // share], tgt[b // share], cam, cfg, radius)
+            for b in range(T.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def gn_reduce_batched_reference(T, mu, src, tgt, cam: CameraIntrinsics,
                                 cfg: ICPConfig, radius: int):
     """Plain torch version of the batched kernel: `gn_reduce_reference` on
-    each problem in turn, so that problem b equals the single plain version
-    on its inputs exactly."""
-    _check_inputs(T, mu, src, tgt, radius, batched=True)
-    outs = [gn_reduce_reference(T[b], mu[b], src[b], tgt[b], cam, cfg, radius)
-            for b in range(src.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    each problem in turn."""
+    return _each_problem(gn_reduce_reference, T, mu, src, tgt, cam, cfg, radius)
+
+
+def gn_step_batched_reference(T, mu, src, tgt, cam: CameraIntrinsics,
+                              cfg: ICPConfig, radius: int):
+    """Plain version of `gn_step_batched`: `gn_step_reference` on each
+    problem in turn."""
+    return _each_problem(gn_step_reference, T, mu, src, tgt, cam, cfg, radius)
 
 
 def gn_reduce_batched(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
                       radius: int):
     """B fused GN reductions in one launch: T (B, 4, 4), mu (B, 2), src
-    (B, 8, H, W), tgt (B, 10, H, W) -> (H (B, 6, 6), g (B, 6), inliers (B,)
-    int32, sq_sum (B,)).
+    (G, 8, H, W), tgt (G, 10, H, W), G dividing B -> (H (B, 6, 6), g (B, 6),
+    inliers (B,) int32, sq_sum (B,)).
 
     CPU tensors take `gn_reduce_batched_reference`. CUDA tensors launch the
     kernel once for all B problems on the current stream (no host sync) and
@@ -258,33 +386,104 @@ def gn_reduce_batched(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
     """
     if src.device.type == "cpu":
         return gn_reduce_batched_reference(T, mu, src, tgt, cam, cfg, radius)
-    if src.device.type != "cuda":
-        raise ValueError(f"gn_reduce_batched: no kernel for device {src.device}")
-    _check_inputs(T, mu, src, tgt, radius, batched=True)
-    from slam_rgbd_tpu_torch.ops import _build
-
-    lib = _build.load()
-    n_b, _, h, w = src.shape
-    c = _constants(cam, cfg)
-    scal = torch.cat([T.reshape(n_b, 16), mu], dim=1)
-    scratch = torch.empty(
-        lib.gn_reduce_batched_scratch_floats(n_b, h, w), dtype=torch.float32,
-        device=src.device,
-    )
-    out = torch.empty((n_b, 43), dtype=torch.float32, device=src.device)
-    inliers = torch.empty((n_b,), dtype=torch.int32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.gn_reduce_batched_launch(
-            scal.data_ptr(), src.data_ptr(), tgt.data_ptr(), n_b, h, w, radius,
-            c["fx"], c["fy"], c["cx"], c["cy"], c["min_depth"],
-            c["max_dist_sq"], c["cos_thresh"], c["huber"], c["rgb_w"],
-            c["rgb_huber"], scratch.data_ptr(), out.data_ptr(),
-            inliers.data_ptr(), stream,
-        )
-    _build.check(err, "gn_reduce_batched launch")
+    out = _launch(T, mu, src, tgt, cam, cfg, radius, True, False)
     gn_reduce_batched.launches += 1
-    return out[:, :36].view(n_b, 6, 6), out[:, 36:42], inliers, out[:, 42]
+    return _reduction(out)
 
 
 gn_reduce_batched.launches = 0
+
+
+def gn_step_batched(T, mu, src, tgt, cam: CameraIntrinsics, cfg: ICPConfig,
+                    radius: int):
+    """B GN iterations in one launch -> (T_next (B, 4, 4), H, g, inliers,
+    sq_sum): `gn_reduce_batched` and, per problem, the solve and pose update.
+    Counts in `gn_reduce_batched.launches`."""
+    if src.device.type == "cpu":
+        return gn_step_batched_reference(T, mu, src, tgt, cam, cfg, radius)
+    out = _launch(T, mu, src, tgt, cam, cfg, radius, True, True)
+    gn_reduce_batched.launches += 1
+    return (_pose(out),) + _reduction(out)
+
+
+# ---- the kernel's pose update, written out ----------------------------------
+
+
+def solve_update_written_out(T, H, g, inliers, damping: float) -> torch.Tensor:
+    """The arithmetic of the kernel's pose update, scalar by scalar in the
+    kernel's order, on tensors with any leading dimensions: damping
+    `H + diag(damping * max(diag H, 1))`, a 6x6 Cholesky factorization and
+    two triangular solves, the identity step where a pivot is not positive,
+    the step is not finite or `inliers <= 6`, se3 exp with its Taylor branch,
+    the product with T and two passes of rotation normalisation.
+
+    It computes what `odometry/icp._apply_update` computes, with every sum
+    in a stated order: the kernel's `T_next` is held against it on the card,
+    and it against `_apply_update` in the CPU tests.
+    """
+    A = [[H[..., i, j] for j in range(6)] for i in range(6)]
+    for i in range(6):
+        A[i][i] = A[i][i] + damping * torch.clamp_min(A[i][i], 1.0)
+    ok = inliers > 6
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = A[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        ok = ok & (s > 0.0)  # a pivot that is not positive (or NaN) fails
+        d = torch.sqrt(s)
+        L[j][j] = d
+        for i in range(j + 1, 6):
+            r = A[i][j]
+            for k in range(j):
+                r = r - L[i][k] * L[j][k]
+            L[i][j] = r / d
+    y, x = [None] * 6, [None] * 6
+    for i in range(6):  # L y = -g
+        s = -g[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    for i in range(5, -1, -1):  # L^T x = y
+        s = y[i]
+        for k in range(i + 1, 6):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    for i in range(6):
+        ok = ok & torch.isfinite(x[i])
+    x = [torch.where(ok, xi, 0.0) for xi in x]
+
+    # se3 exp of (v, w) = (x[0:3], x[3:6])
+    wx, wy, wz = x[3], x[4], x[5]
+    tsq = wx * wx + wy * wy + wz * wz
+    ts = torch.clamp_min(tsq, 1e-8)
+    theta = torch.sqrt(ts)
+    small = tsq < 1e-8
+    sin_t = torch.sin(theta)
+    ca = torch.where(small, 1.0 - tsq / 6.0, sin_t / theta)
+    cb = torch.where(small, 0.5 - tsq / 24.0, (1.0 - torch.cos(theta)) / ts)
+    cc = torch.where(small, 1.0 / 6.0 - tsq / 120.0, (theta - sin_t) / (ts * theta))
+    zero = torch.zeros_like(wx)
+    W = [[zero, -wz, wy], [wz, zero, -wx], [-wy, wx, zero]]
+    E = [[None] * 4 for _ in range(4)]
+    for i in range(3):
+        V = [None] * 3
+        for j in range(3):
+            ww = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j]
+            eye = 1.0 if i == j else 0.0
+            E[i][j] = eye + ca * W[i][j] + cb * ww
+            V[j] = eye + cb * W[i][j] + cc * ww
+        E[i][3] = V[0] * x[0] + V[1] * x[1] + V[2] * x[2]
+    E[3] = [zero, zero, zero, zero + 1.0]
+
+    N = [[E[i][0] * T[..., 0, j] + E[i][1] * T[..., 1, j] + E[i][2] * T[..., 2, j]
+          + E[i][3] * T[..., 3, j] for j in range(4)] for i in range(4)]
+    for _ in range(2):  # R <- R (1.5 I - 0.5 R^T R)
+        Q = [[(1.5 if i == j else 0.0)
+              - 0.5 * (N[0][i] * N[0][j] + N[1][i] * N[1][j] + N[2][i] * N[2][j])
+              for j in range(3)] for i in range(3)]
+        R = [[N[i][0] * Q[0][j] + N[i][1] * Q[1][j] + N[i][2] * Q[2][j]
+              for j in range(3)] for i in range(3)]
+        for i in range(3):
+            N[i][:3] = R[i]
+    return torch.stack([torch.stack(row, dim=-1) for row in N], dim=-2)

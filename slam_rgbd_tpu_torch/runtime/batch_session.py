@@ -7,8 +7,9 @@ sequence goes through `process_frames`.
 
   * tracking: natively batched. The pyramids of all sequences are built with
     a leading B, and `odometry.icp.track_frame_batched` runs every GN
-    iteration as one `ops.gn_reduce.gn_reduce_batched` call for all B
-    sequences (42 a tracked step at the default ICP schedule), so a step
+    iteration as one `ops.gn_reduce.gn_step_batched` call for all B
+    sequences (22 a tracked step at the default ICP schedule: the three
+    coarse starts of every sequence are problems of one call), so a step
     queues about as many device operations for B sequences as for one.
   * keyframes, backend, loop closure, relocalization: the reference masks
     these programs per sequence because its shapes are static; its masks are

@@ -263,7 +263,7 @@ def _chain(n):
 def _edge_lists(capacity, items):
     """The same edges in both packages' lists; items: (i, j, T, weight)."""
     ej, nj = jpg.EdgeList.empty(capacity), jnp.int32(0)
-    et, nt = tpg.EdgeList.empty(capacity), torch.zeros((), dtype=torch.int32)
+    et, nt = tpg.EdgeList.empty(capacity, "cpu"), torch.zeros((), dtype=torch.int32)
     for i, j, T, w in items:
         ej, nj = ej.add(nj, i, j, jnp.asarray(T), w)
         et, nt = et.add(nt, i, j, torch.tensor(T), w)

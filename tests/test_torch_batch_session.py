@@ -390,6 +390,47 @@ def test_batch_steady_and_traj_append_match_jax(frames, scenario):
     assert not buf_t[:, :3].any() and not buf_t[:, 4:].any()
 
 
+@pytest.mark.parametrize("hypotheses", [1, 3])
+def test_icp_align_batched_stacked_starts_match_jax(frames, hypotheses):
+    """The batched tracker against the JAX kernel path with one and with
+    three starts. The port runs the starts of the coarsest level as problems
+    b * n_hyp + s of one batched GN step, the starts of a sequence sharing
+    its planes. With three starts sequence B's prior is rolled 0.3 rad about
+    the optical axis, so that another start than the prior wins there (a
+    single start from that prior does not converge in five iterations and
+    is no parity scene): poses to 1e-5, inliers equal."""
+    from slam_rgbd_tpu.odometry import icp as jicp
+    from slam_rgbd_tpu_torch.odometry import icp as ticp
+
+    depth, rgb, _, _ = frames
+    pyr = lambda i: jax.vmap(lambda d, c: jcam.build_frame_pyramid(d, CAM, levels=2, rgb=c))(
+        jnp.asarray(depth[i]), jnp.asarray(rgb[i]))
+    prev_j, curr_j = pyr(4), pyr(5)
+    prev_t, curr_t = (interop.pyramid_from_numpy(_np(p)) for p in (prev_j, curr_j))
+    prior = np.stack([_exp([0.002, 0, 0, 0, 0, 0]), EYE]).astype(np.float32)
+    if hypotheses == 3:
+        prior[1, :2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
+    else:
+        prior[1, 1, 3] = -0.002
+    icfg = dataclasses.replace(CFG.icp, hypotheses=hypotheses)
+    want = jicp.icp_align_batched(curr_j, prev_j, jnp.asarray(prior), CAM, icfg)
+    got = ticp.icp_align_batched(curr_t, prev_t, torch.tensor(prior), CAM, icfg)
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
+    assert got.inliers.tolist() == np.asarray(want.inliers).tolist()
+    one = dataclasses.replace(icfg, hypotheses=1, iters=(3, 0), backend="auto")
+    alone = lambda T0: ticp.icp_align_batched(curr_t, prev_t, T0, CAM, one).inliers
+    T0 = torch.tensor(prior)
+    by_start = torch.stack([alone(T0), alone(torch.tensor(np.stack([EYE] * B))),
+                            alone(tse3.normalize_rotation(tse3.inverse(T0)))])
+    coarse = ticp.icp_align_batched(curr_t, prev_t, T0, CAM,
+                                    dataclasses.replace(one, hypotheses=hypotheses))
+    if hypotheses == 3:
+        assert int(by_start[:, 1].argmax()) != 0  # B: another start beats the rolled prior
+        assert coarse.inliers.tolist() == by_start.amax(dim=0).tolist()
+    else:
+        assert coarse.inliers.tolist() == by_start[0].tolist()
+
+
 def test_interop_round_trip(scenario):
     before = _steps(scenario, "loop_close")[0][1]
     bs = _load(before)

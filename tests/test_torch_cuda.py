@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written kernels (`gn_reduce`,
-`gn_reduce_batched`, `gated_match`, `hamming_top2`) against their plain torch
-versions, and the sessions on the card against the same sessions on the CPU.
+"""The port on a CUDA card: the hand-written kernels (`gn_reduce` / `gn_step`,
+`gn_reduce_batched` / `gn_step_batched`, `gated_match`, `hamming_top2`)
+against their plain torch versions, and the sessions on the card against the
+same sessions on the CPU.
 
 Every test here needs a card and skips without one. The file imports no jax
 (the machine with the card has none), so it runs there on its own:
@@ -190,8 +191,9 @@ def test_hamming_kernels_reject_bad_input_on_card(cuda_device):
 def test_session_on_card_matches_cpu(cuda_device):
     """Six frames of the sweep at the default three-level ICP, with the
     kernels on the card and with the plain path on the CPU. Each session's
-    own launches: 42 `gn_reduce` a tracked frame and one `gated_match` a
-    keyframe insert that had a map on the card, none on the CPU; no frame
+    own launches: 10 `gn_reduce_batched` (the three coarse starts stacked)
+    and 7 + 5 `gn_reduce` a tracked frame and one `gated_match` a keyframe
+    insert that had a map on the card, none on the CPU; no frame
     lost, so no `hamming_top2`. Poses agree to 1e-4 (float32 sums in another
     order, compounded over five GN-tracked frames); both sessions insert the
     same keyframes, and their map sizes agree to 5% (a descriptor bit or a
@@ -204,7 +206,7 @@ def test_session_on_card_matches_cpu(cuda_device):
     )
     seq = SyntheticSequence(6, CAM, sweep=True, device=cuda_device)
     frames = list(seq)
-    counters = (tg.gn_reduce, th.gated_match, th.hamming_top2)
+    counters = (tg.gn_reduce_batched, tg.gn_reduce, th.gated_match, th.hamming_top2)
     out, sessions = {}, {}
     for dev in ("cpu", cuda_device):
         sess = SLAMSession(cfg, device=dev)
@@ -217,9 +219,10 @@ def test_session_on_card_matches_cpu(cuda_device):
         assert sess.state.lost == 0
         assert sess.state.keyframes > 1
         if dev == "cpu":
-            assert launched == [0, 0, 0]
+            assert launched == [0, 0, 0, 0]
         else:
-            assert launched == [42 * (len(frames) - 1), sess.state.keyframes - 1, 0]
+            tracked = len(frames) - 1
+            assert launched == [10 * tracked, 12 * tracked, sess.state.keyframes - 1, 0]
         out[str(dev)] = T
         sessions[str(dev)] = sess
     np.testing.assert_allclose(out[str(cuda_device)], out["cpu"], atol=1e-4)
@@ -323,6 +326,141 @@ def test_batched_kernel_matches_single_and_reference_on_card(cuda_device, n_b, r
     np.testing.assert_allclose(s1, s0, rtol=1e-4)
 
 
+def _one_problem(device, radius=4):
+    """(T, mu, src, tgt, cam) of one rendered frame pair at 160x120."""
+    T, mu, src, tgt, lcam = _batched_problems(device, 1, CAM)
+    return T[0], mu[0], src[0], tgt[0], lcam
+
+
+@pytest.mark.cuda
+def test_gn_step_matches_plain_versions_on_card(cuda_device):
+    """`gn_step` is `gn_reduce` (the same bits) and, in the same launch, the
+    pose update: T_next against `solve_update_written_out` on the kernel's
+    own H and g to 1e-6 (the same scalar arithmetic; sin and cos may differ
+    in the last bit), against `_apply_update` to 1e-5 (library Cholesky and
+    matrix products round otherwise), and the whole against the plain
+    `gn_step_reference`. An all-invalid source gives the identity step."""
+    T, mu, src, tgt, lcam = _one_problem(cuda_device)
+    cfg = ICPConfig()
+    before = tg.gn_reduce.launches
+    T1, H, g, inl, sq = tg.gn_step(T, mu, src, tgt, lcam, cfg, 4)
+    again = tg.gn_step(T, mu, src, tgt, lcam, cfg, 4)
+    reduced = tg.gn_reduce(T, mu, src, tgt, lcam, cfg, 4)
+    assert tg.gn_reduce.launches == before + 3
+    torch.cuda.synchronize()
+    for a, b in zip((T1, H, g, inl, sq), again):
+        assert torch.equal(a, b)
+    for a, b in zip((H, g, inl, sq), reduced):
+        assert torch.equal(a, b)
+    assert inl.dtype == torch.int32 and int(inl) > 1000
+    written = tg.solve_update_written_out(T, H, g, inl, cfg.damping)
+    np.testing.assert_allclose(T1.cpu().numpy(), written.cpu().numpy(), atol=1e-6)
+    applied = icp._apply_update(T, H, g, inl, cfg)
+    np.testing.assert_allclose(T1.cpu().numpy(), applied.cpu().numpy(), atol=1e-5)
+    assert float((T1 - T).abs().max()) > 1e-5  # the step moved the pose
+    ref = tg.gn_step_reference(T, mu, src, tgt, lcam, cfg, 4)
+    np.testing.assert_allclose(T1.cpu().numpy(), ref[0].cpu().numpy(), atol=1e-5)
+    assert int(ref[3]) == int(inl)
+    # no valid source pixel: no inliers, the identity step
+    dead = src.clone()
+    dead[6] = 0.0
+    T0, H0, _, inl0, _ = tg.gn_step(T, mu, dead, tgt, lcam, cfg, 4)
+    assert int(inl0) == 0 and not H0.any()
+    np.testing.assert_allclose(T0.cpu().numpy(), T.cpu().numpy(), atol=1e-6)
+    np.testing.assert_allclose(
+        T0.cpu().numpy(),
+        tg.solve_update_written_out(T, H0, g * 0, inl0, cfg.damping).cpu().numpy(),
+        atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gn_step_batched_strides_and_bit_identity_on_card(cuda_device):
+    """One batched `gn_step_batched` launch: problem b equals a single
+    `gn_step` launch on its inputs bit for bit; a batch made by `expand`
+    over one plane set, or a leading G = 1, gives what contiguous copies
+    give; G = 2 sets under 6 problems are read as b // 3; and poses taken
+    as views of an earlier launch's output (not contiguous across problems)
+    are read in place."""
+    T, mu, src, tgt, lcam = _batched_problems(cuda_device, 3, CAM)
+    cfg = ICPConfig()
+    before = tg.gn_reduce_batched.launches
+    out = tg.gn_step_batched(T, mu, src, tgt, lcam, cfg, 4)
+    assert tg.gn_reduce_batched.launches == before + 1
+    assert [tuple(x.shape) for x in out] == [(3, 4, 4), (3, 6, 6), (3, 6), (3,), (3,)]
+    for b in range(3):
+        single = tg.gn_step(T[b], mu[b], src[b], tgt[b], lcam, cfg, 4)
+        for a, c in zip(out, single):
+            assert torch.equal(a[b], c), b
+    ref = tg.gn_step_batched_reference(T, mu, src, tgt, lcam, cfg, 4)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(), atol=1e-5)
+    assert torch.equal(out[3], ref[3])
+    # three poses over the planes of problem 0
+    copies = tg.gn_step_batched(T, mu, src[:1].repeat(3, 1, 1, 1),
+                                tgt[:1].repeat(3, 1, 1, 1), lcam, cfg, 4)
+    expanded = tg.gn_step_batched(T, mu, src[0].expand(3, -1, -1, -1),
+                                  tgt[0].expand(3, -1, -1, -1), lcam, cfg, 4)
+    one_set = tg.gn_step_batched(T, mu, src[:1], tgt[:1], lcam, cfg, 4)
+    for a, b, c in zip(copies, expanded, one_set):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert len(set(copies[3].tolist())) == 3
+    # the next iteration from the first one's poses, a strided view
+    assert not out[0].is_contiguous()
+    nxt = tg.gn_step_batched(out[0], mu, src, tgt, lcam, cfg, 4)
+    nxt_c = tg.gn_step_batched(out[0].contiguous(), mu, src, tgt, lcam, cfg, 4)
+    for a, b in zip(nxt, nxt_c):
+        assert torch.equal(a, b)
+    # two sets under six problems
+    T6 = torch.cat([T, T.flip(0)])
+    mu6 = torch.cat([mu, mu.flip(0)])
+    grouped = tg.gn_step_batched(T6, mu6, src[:2], tgt[:2], lcam, cfg, 4)
+    spelled = tg.gn_step_batched(T6, mu6, src[:2].repeat_interleave(3, 0),
+                                 tgt[:2].repeat_interleave(3, 0), lcam, cfg, 4)
+    for a, b in zip(grouped, spelled):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_at_a_width_no_multiple_of_four_on_card(cuda_device):
+    """A level 126 wide, whose pixel count is no multiple of a block's 1024:
+    the last block is ragged; results as the plain version's."""
+    cam = CameraIntrinsics(fx=112.3, fy=112.3, cx=62.5, cy=47.5, width=126, height=96)
+    T, mu, src, tgt, lcam = _batched_problems(cuda_device, 2, cam)
+    cfg = ICPConfig()
+    out = tg.gn_reduce_batched(T, mu, src, tgt, lcam, cfg, 4)
+    ref = tg.gn_reduce_batched_reference(T, mu, src, tgt, lcam, cfg, 4)
+    assert torch.equal(out[2], ref[2]) and int(out[2].min()) > 1000
+    for b in range(2):
+        h_scale = max(1.0, float(ref[0][b].abs().max()))
+        np.testing.assert_allclose(out[0][b].cpu().numpy() / h_scale,
+                                   ref[0][b].cpu().numpy() / h_scale, atol=2e-6)
+        single = tg.gn_reduce(T[b], mu[b], src[b], tgt[b], lcam, cfg, 4)
+        for a, c in zip(out, single):
+            assert torch.equal(a[b], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gn_reduce", "gn_step", "gn_reduce_batched",
+                                  "gn_step_batched"])
+def test_a_call_is_one_launch_and_nothing_else_on_card(cuda_device, name):
+    """A profiler trace of one call holds one device operation: the kernel
+    (no copy, fill or second kernel around it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T, mu, src, tgt, lcam = _batched_problems(cuda_device, 2, CAM)
+    if "batched" not in name:
+        T, mu, src, tgt = T[0], mu[0], src[0], tgt[0]
+    fn = getattr(tg, name)
+    fn(T, mu, src, tgt, lcam, ICPConfig(), 4)  # builds, makes the workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(T, mu, src, tgt, lcam, ICPConfig(), 4)
+        torch.cuda.synchronize()
+    on_device = [(ev.key, ev.count) for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_device) == 1 and on_device[0][1] == 1, on_device
+    assert "gn_kernel" in on_device[0][0]
+
+
 @pytest.mark.cuda
 def test_batched_kernel_rejects_bad_input_on_card(cuda_device):
     src = torch.zeros((2, 8, 12, 16), device=cuda_device)
@@ -341,7 +479,7 @@ def test_batched_kernel_rejects_bad_input_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_batch_session_on_card_matches_cpu(cuda_device):
-    """Two different sequences, ten frames, on the card and on the CPU: 42
+    """Two different sequences, ten frames, on the card and on the CPU: 22
     `gn_reduce_batched` launches a tracked step and no single `gn_reduce`
     launch on the card, none of either on the CPU; one `gated_match` launch
     an insert with a map. Poses agree to 1e-3: float32 sums in another order
@@ -375,7 +513,7 @@ def test_batch_session_on_card_matches_cpu(cuda_device):
         if dev == "cpu":
             assert launched == [0, 0, 0]
         else:
-            assert launched == [42 * 9, 0, int((bs.keyframe_counts - 1).sum())]
+            assert launched == [22 * 9, 0, int((bs.keyframe_counts - 1).sum())]
         out[str(dev)] = (T, bs.keyframe_counts, bs.map_point_counts())
     (T_cpu, kf_cpu, n_cpu), (T_gpu, kf_gpu, n_gpu) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_allclose(T_gpu, T_cpu, atol=1e-3)

@@ -192,24 +192,24 @@ def test_track_frame_batched_matches_jax(batch):
 
 
 def test_icp_align_batched_matches_jax_and_single(batch, monkeypatch):
-    """`icp_align_batched` against the JAX one, one `gn_reduce_batched` call
-    per GN iteration for all problems (3 * 4 + 3), and each problem against
-    the port's own single `icp_align` (1e-6: the same arithmetic, batched
-    matrix products)."""
+    """`icp_align_batched` against the JAX one, one `gn_step_batched` call
+    per GN iteration for all problems (4 + 3): at the coarsest level the
+    3 starts x 3 sequences as nine problems over the three plane sets, then
+    three problems; and each problem against the port's own single
+    `icp_align` (1e-6: the same arithmetic, batched matrix products)."""
     prev_j, curr_j, prev_t, curr_t, prior = batch
     want = jicp.icp_align_batched(curr_j, prev_j, jnp.asarray(prior), CAM, CFG)
     calls = []
-    real = tg.gn_reduce_batched
+    real = tg.gn_step_batched
 
     def counting(*args):
-        calls.append(tuple(args[2].shape))
+        calls.append((args[0].shape[0], tuple(args[2].shape)))
         return real(*args)
 
-    monkeypatch.setattr(tg, "gn_reduce_batched", counting)
+    monkeypatch.setattr(tg, "gn_step_batched", counting)
     got = ticp.icp_align_batched(curr_t, prev_t, torch.from_numpy(prior), CAM, CFG)
     monkeypatch.undo()
-    assert len(calls) == 3 * 4 + 3
-    assert calls[0] == (3, 8, 48, 64) and calls[-1] == (3, 8, 96, 128)
+    assert calls == [(9, (3, 8, 48, 64))] * 4 + [(3, (3, 8, 96, 128))] * 3
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
     assert got.inliers.tolist() == np.asarray(want.inliers).tolist()
     for b in range(3):

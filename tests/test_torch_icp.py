@@ -1,6 +1,7 @@
 """Port ICP (`icp_align`, `track_frame`) vs the JAX package on its kernel
 path (`backend="pallas"`, `gn_reduce` in interpret mode), at 128x96 with two
-pyramid levels as in `tests/test_icp_pallas.py:194`.
+pyramid levels as in `tests/test_icp_pallas.py:194`. The port runs the
+coarsest level's three starts stacked as problems of one batched GN step.
 
 Both follow the same dominant-flow schedule, so they agree far inside the
 5e-4 that separates the JAX package's own two schedules: poses to 1e-5
@@ -79,24 +80,73 @@ def test_track_frame_matches_jax(pairs, case):
         assert float(res_t.valid_fraction) > 0.8
 
 
+def _count_steps(monkeypatch):
+    """Record every `gn_step` / `gn_step_batched` call of the tracker as
+    (name, leading shape of T, shape of src)."""
+    calls = []
+    for name in ("gn_step", "gn_step_batched"):
+        def counting(*args, _real=getattr(tg, name), _name=name):
+            calls.append((_name, tuple(args[0].shape[:-2]), tuple(args[2].shape)))
+            return _real(*args)
+
+        monkeypatch.setattr(tg, name, counting)
+    return calls
+
+
 def test_icp_align_matches_jax_and_counts_reductions(pairs, monkeypatch):
-    """`icp_align` itself, and one GN reduction per iteration: three starts
-    at the coarsest level, then the finer level, so 3*4 + 3 calls."""
+    """`icp_align` itself, and one GN step per iteration: the three starts
+    of the coarsest level as problems of one batched call over one set of
+    planes (made by `expand`), then the finer level, so 4 + 3 calls."""
     (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
     want = jicp.icp_align(curr_j, prev_j, jnp.asarray(_prior()), CAM, CFG)
-    calls = []
-    real = tg.gn_reduce
-
-    def counting(*args):
-        calls.append(args[2].shape)
-        return real(*args)
-
-    monkeypatch.setattr(tg, "gn_reduce", counting)
+    calls = _count_steps(monkeypatch)
     got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(_prior()), CAM, CFG)
-    assert len(calls) == 3 * 4 + 3
-    assert calls[0] == (8, 48, 64) and calls[-1] == (8, 96, 128)
+    assert calls[:4] == [("gn_step_batched", (3,), (3, 8, 48, 64))] * 4
+    assert calls[4:] == [("gn_step", (), (8, 96, 128))] * 3
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
     assert int(got.inliers) == int(want.inliers)
+
+
+def test_icp_align_single_start_matches_jax(pairs, monkeypatch):
+    """`hypotheses` 1: no stacking, every iteration a single `gn_step`."""
+    import dataclasses
+
+    one = dataclasses.replace(CFG, hypotheses=1)
+    (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
+    want = jicp.icp_align(curr_j, prev_j, jnp.asarray(_prior()), CAM, one)
+    calls = _count_steps(monkeypatch)
+    got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(_prior()), CAM, one)
+    assert [c[0] for c in calls] == ["gn_step"] * 7
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
+    assert int(got.inliers) == int(want.inliers)
+
+
+def test_icp_align_identity_start_wins_over_a_bad_prior(pairs):
+    """A prior rolled 0.3 rad about the optical axis, which no flow shift
+    absorbs: of the stacked starts the identity (problem 1) has the most
+    inliers at the coarsest level and seeds the finer one, as in the JAX
+    package."""
+    import dataclasses
+
+    (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
+    prior = np.eye(4, dtype=np.float32)
+    prior[:2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
+    want = jicp.icp_align(curr_j, prev_j, jnp.asarray(prior), CAM, CFG)
+    got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(prior), CAM, CFG)
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
+    assert int(got.inliers) == int(want.inliers)
+    # each start alone through the coarsest level
+    coarse = dataclasses.replace(CFG, iters=(4, 0), hypotheses=1, backend="auto")
+    T0 = torch.from_numpy(prior)
+    starts = [T0, torch.eye(4), ticp.se3.normalize_rotation(ticp.se3.inverse(T0))]
+    inl = [int(ticp.icp_align(curr_t, prev_t, c, CAM, coarse).inliers) for c in starts]
+    assert inl[1] == max(inl) > inl[0]
+    stacked = ticp.icp_align(curr_t, prev_t, T0, CAM,
+                             dataclasses.replace(coarse, hypotheses=3))
+    assert int(stacked.inliers) == inl[1]
+    np.testing.assert_allclose(
+        stacked.T.numpy(), ticp.icp_align(curr_t, prev_t, starts[1], CAM, coarse).T.numpy(),
+        atol=1e-6)
 
 
 def test_flow_shift_rounds_half_to_even():

@@ -80,7 +80,7 @@ def _unique_matches(rng, mj, n):
 
 
 def test_empty_map_matches_jax():
-    mt, mj = tmap.empty_map(KCFG, K), jmap.empty_map(KCFG, K)
+    mt, mj = tmap.empty_map(KCFG, K, "cpu"), jmap.empty_map(KCFG, K)
     _assert_maps_equal(mt, mj)
     assert mt.capacity_kf == M and mt.capacity_pt == P
     rt = interop.map_from_numpy(mj)
@@ -89,7 +89,7 @@ def test_empty_map_matches_jax():
 
 
 def test_insert_cull_recycle_and_capacity_sequence(rng):
-    mt, mj = tmap.empty_map(KCFG, K), jmap.empty_map(KCFG, K)
+    mt, mj = tmap.empty_map(KCFG, K, "cpu"), jmap.empty_map(KCFG, K)
     none = np.full(K, -1, np.int32)
     # keyframe 0: everything spawns
     mt, mj = _insert_both(mt, mj, _keyframe(rng, 0), none)
@@ -135,7 +135,7 @@ def test_duplicate_matches_last_keypoint_wins(rng):
     """Two keypoints on one map point: counts add up exactly as in JAX; the
     point's descriptor is the higher keypoint's in the port, either one in
     the reference."""
-    mt, mj = tmap.empty_map(KCFG, K), jmap.empty_map(KCFG, K)
+    mt, mj = tmap.empty_map(KCFG, K, "cpu"), jmap.empty_map(KCFG, K)
     mt, mj = _insert_both(mt, mj, _keyframe(rng, 0), np.full(K, -1, np.int32))
     kf = _keyframe(rng, 1)
     kf["ok"][:] = True
@@ -152,7 +152,7 @@ def test_duplicate_matches_last_keypoint_wins(rng):
 
 @pytest.mark.parametrize("n_kf,window", [(0, 3), (2, 4), (4, 3)])
 def test_local_window_matches_jax(n_kf, window):
-    mt, mj = tmap.empty_map(KCFG, K), jmap.empty_map(KCFG, K)
+    mt, mj = tmap.empty_map(KCFG, K, "cpu"), jmap.empty_map(KCFG, K)
     mt = dataclasses.replace(mt, n_kf=torch.tensor(n_kf, dtype=torch.int32))
     mj = mj.replace(n_kf=jnp.int32(n_kf))
     it, vt = tmap.local_window(mt, window)
@@ -163,7 +163,7 @@ def test_local_window_matches_jax(n_kf, window):
 
 
 def test_edge_list_matches_jax(rng):
-    et, ej = EdgeList.empty(3), JEdgeList.empty(3)
+    et, ej = EdgeList.empty(3, "cpu"), JEdgeList.empty(3)
     nt, nj = torch.zeros((), dtype=torch.int32), jnp.int32(0)
     for k in range(4):  # the fourth is dropped: full
         T = np.asarray(jse3.exp(jnp.asarray(rng.normal(size=6).astype(np.float32) * 0.1)))

@@ -128,24 +128,26 @@ def test_state_from_numpy_resumes_mid_sequence(frames, jax_run):
 
 def test_default_icp_is_42_reductions_per_frame(monkeypatch):
     """Default ICPConfig (iters (10,7,5), 3 starts): 3*10 + 7 + 5 GN
-    reductions per tracked frame, none on the bootstrap frame."""
+    reductions per tracked frame in 10 + 7 + 5 calls (the three starts of
+    the coarsest level are problems of one batched call), none on the
+    bootstrap frame."""
     cam = CameraIntrinsics(fx=142.6, fy=142.6, cx=79.5, cy=59.5,
                            width=160, height=120)
     cfg = SLAMConfig(camera=cam)
     calls = []
-    real = tg.gn_reduce
+    for name in ("gn_step", "gn_step_batched"):
+        def counting(*args, _real=getattr(tg, name)):
+            problems = args[0].shape[0] if args[0].dim() == 3 else 1
+            calls.append((problems, tuple(args[2].shape[-2:])))
+            return _real(*args)
 
-    def counting(*args):
-        calls.append(args[2].shape[1:])
-        return real(*args)
-
-    monkeypatch.setattr(tg, "gn_reduce", counting)
+        monkeypatch.setattr(tg, name, counting)
     sess = TrackingSession(cfg, device="cpu")
     seq = jsyn.SyntheticSequence(3, cam)
     for ts, d, c in seq:
         sess.process_frame(ts, d, c)
-    assert len(calls) == 42 * 2
-    assert calls[:30] == [(30, 40)] * 30 and calls[37:42] == [(120, 160)] * 5
+    assert len(calls) == 22 * 2 and sum(c[0] for c in calls) == 42 * 2
+    assert calls[:10] == [(3, (30, 40))] * 10 and calls[17:22] == [(1, (120, 160))] * 5
 
 
 def test_trajectory_export_reset_and_device(tmp_path, frames):
