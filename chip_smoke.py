@@ -21,11 +21,14 @@ them). Phases, each fatal on failure:
                frame pair at the three pyramid levels the tracker uses,
                `gn_step`'s next pose against `solve_update_written_out` and
                `_apply_update`, a degenerate system included;
-               `gated_match` (1024 x 16384)
+               `gated_match` (1024 x 16384, merge tier on and off)
                and `hamming_top2` (1024 x 16384 and 16384 x 1024) on the
                descriptors and geometry of rendered 640x480 keyframes in a
-               full-capacity map, with seeded ties and masked rows, all
-               outputs exactly equal. Median device times of kernel and
+               16384-slot map, with seeded ties and masked rows, both again
+               on that map with every slot filled, and `hamming_top2` at
+               1024 x 1024 on two keyframes' descriptors (a loop
+               verification), all outputs exactly equal to the plain
+               version's and to a second launch. Median device times of kernel and
                plain version over 50 calls (CUDA events), and the least time
                the card could take for the same work.
                `gn_reduce_batched` / `gn_step_batched` with 8, 4 and 1
@@ -478,10 +481,106 @@ def _assert_exact(name: str, kernel_out, again, plain_out) -> float:
     return worst
 
 
+def _full_map(m, seed: int = 0):
+    """`m` with every free point slot filled: each takes the descriptor of a
+    valid point (cyclically) with eight of its bits flipped and the point's
+    position moved by up to 3 cm, so that all 16384 slots are valid, near
+    copies tie and the gates see a crowded map."""
+    import dataclasses
+
+    free = (~m.pt_valid).nonzero()[:, 0]
+    src = m.pt_valid.nonzero()[:, 0]
+    pick = src[torch.arange(len(free), device=src.device) % len(src)]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    signs, xyz = m.pt_signs.clone(), m.pt_xyz.clone()
+    flips = torch.rand((len(free), 256), generator=gen).argsort(dim=1)[:, :8]
+    row = signs[pick]
+    row.scatter_(1, flips.to(row.device), -row.gather(1, flips.to(row.device)))
+    signs[free] = row
+    xyz[free] = m.pt_xyz[pick] + 0.03 * (
+        2 * torch.rand((len(free), 3), generator=gen) - 1).to(xyz.device)
+    return dataclasses.replace(m, pt_signs=signs, pt_xyz=xyz,
+                               pt_valid=torch.ones_like(m.pt_valid))
+
+
+def _gated_args(smap, m, desc, ok, kp, pts, T, cfg):
+    """The arguments `match_against_map` hands `gated_match` for this query
+    against map `m`, and the point ids it returns."""
+    captured = {}
+    real = smap.gated_match
+
+    def capture(*args, **kw):
+        captured["args"], captured["kw"] = args, kw
+        return real(*args, **kw)
+
+    smap.gated_match = capture
+    try:
+        pid = smap.match_against_map(
+            m, desc.signs, ok, kp.uv, pts[:, 2], T, cam=cfg.camera,
+            max_distance=float(cfg.orb.match_threshold), kp_pts=pts,
+            merge_radius=cfg.keyframes.merge_radius)
+    finally:
+        smap.gated_match = real
+    return captured["args"], captured["kw"], pid
+
+
+def _gated_case(th, name: str, g_args, g_kw):
+    """gated_match on one input set: equal to the plain version and to a
+    second launch, timed, with its bound. -> (its row, the outputs)."""
+    a = th.gated_match(*g_args, **g_kw)
+    b = th.gated_match(*g_args, **g_kw)
+    ref = th.gated_match_reference(*g_args, **g_kw)
+    torch.cuda.synchronize()
+    err = _assert_exact(f"gated_match {name}", a, b, ref)
+    ms, busy = device_ms(lambda: th.gated_match(*g_args, **g_kw))
+    plain_ms, _ = device_ms(lambda: th.gated_match_reference(*g_args, **g_kw), n=10)
+    k1, k2 = g_args[0].shape[0], g_args[2].shape[0]
+    # the pairs whose distance this run's data needs: valid query x valid
+    # point; 256 multiply-adds a pair for the sign product, ~17 float
+    # operations a pair for the two gates
+    pairs = float(g_args[1][:, 3].sum()) * float(g_args[3][:, 3].sum())
+    b_ms, b_by = bound((k1 + k2) * (256 + 32) + k1 * 16,
+                       f32_ops=17.0 * pairs, int8_ops=2.0 * 256 * pairs)
+    print(f"gated_match {name}: d1 i1 d2 i2 equal the plain version and a second "
+          f"launch exactly; tier 1 matched {int((a[0] < 64).sum())}, tier 2 "
+          f"{int((a[2] < 1e9).sum())} of {k1} queries")
+    print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms (queue busy "
+          f"share {busy:.3f}), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+          f"({pairs:.0f} unmasked pairs)")
+    return {"shape": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}, a
+
+
+def _top2_case(th, name: str, args) -> dict:
+    """hamming_top2 on one input set, as `_gated_case`. -> its row."""
+    a = th.hamming_top2(*args)
+    b = th.hamming_top2(*args)
+    ref = th.hamming_top2_reference(*args)
+    torch.cuda.synchronize()
+    err = _assert_exact(f"hamming_top2 {name}", a, b, ref)
+    tied = int(((a[0] == a[1]) & (a[0] < 1e9)).sum())
+    ms, busy = device_ms(lambda: th.hamming_top2(*args))
+    plain_ms, _ = device_ms(lambda: th.hamming_top2_reference(*args), n=10)
+    n1, n2 = args[0].shape[0], args[2].shape[0]
+    pairs = float(args[1].sum()) * float(args[3].sum())
+    b_ms, b_by = bound((n1 + n2) * (256 + 1) + n1 * 12, int8_ops=2.0 * 256 * pairs)
+    print(f"hamming_top2 {name}: best second idx equal the plain version and a second "
+          f"launch exactly ({tied} rows with second == best, {int(args[1].sum())} valid "
+          f"queries, {int(args[3].sum())} valid columns)")
+    print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms (queue busy "
+          f"share {busy:.3f}), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}")
+    return {"shape": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
 def hamming_kernel_phase(cfg) -> dict:
     """gated_match and hamming_top2 vs their plain versions, exactly, at the
-    shapes the session gives them: 1024 query keypoints of a rendered
-    640x480 frame against a 16384-slot map built from earlier frames."""
+    shapes the sessions give them: 1024 query keypoints of a rendered
+    640x480 frame against a 16384-slot map built from earlier frames (most
+    slots free) and against the same map with every slot filled, both
+    directions of the relocalization match, and two keyframes' 1024
+    descriptors against each other as `backend.loop.verify_loop` matches
+    them."""
     phase("kernels: gated_match, hamming_top2")
     from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
     from slam_rgbd_tpu_torch.mapping import map as smap
@@ -513,6 +612,7 @@ def hamming_kernel_phase(cfg) -> dict:
     m.pt_xyz[dup] = m.pt_xyz[:128]
     m.pt_valid[dup] = True
     check(bool((m.pt_signs[~m.pt_valid] == 0).all()), "free slots are not zero rows")
+    full = _full_map(m)
 
     # the query: a frame between two of the keyframes, at a pose 1 cm off
     q = 30
@@ -520,22 +620,8 @@ def hamming_kernel_phase(cfg) -> dict:
     kp, desc, pts, ok = rs._features(depth, rgb, cfg.orb, cam)
     T = torch.from_numpy(rel[q]).to(dev).clone()
     T[0, 3] += 0.01
-    captured = {}
-    real = smap.gated_match
-
-    def capture(*args, **kw):
-        captured["args"], captured["kw"] = args, kw
-        return real(*args, **kw)
-
-    smap.gated_match = capture
-    try:
-        pid = smap.match_against_map(
-            m, desc.signs, ok, kp.uv, pts[:, 2], T, cam=cam,
-            max_distance=float(cfg.orb.match_threshold), kp_pts=pts,
-            merge_radius=kcfg.merge_radius)
-    finally:
-        smap.gated_match = real
-    g_args, g_kw = captured["args"], captured["kw"]
+    g_args, g_kw, pid = _gated_args(smap, m, desc, ok, kp, pts, T, cfg)
+    g_full, g_full_kw, _ = _gated_args(smap, full, desc, ok, kp, pts, T, cfg)
     feat_ms = host_ms(lambda: rs._features(depth, rgb, cfg.orb, cam))
     assoc_ms = host_ms(lambda: smap.match_against_map(
         m, desc.signs, ok, kp.uv, pts[:, 2], T, cam=cam,
@@ -546,65 +632,41 @@ def hamming_kernel_phase(cfg) -> dict:
           f"data, gated_match) {assoc_ms:.2f} ms")
     k1, k2 = g_args[0].shape[0], g_args[2].shape[0]
     check((k1, k2) == (cfg.orb.n_features, kcfg.max_map_points), f"shapes {k1} x {k2}")
-    out = {}
+    check(bool(full.pt_valid.all()), "the full map has free slots")
 
-    # ---- gated_match
-    a = th.gated_match(*g_args, **g_kw)
-    b = th.gated_match(*g_args, **g_kw)
-    ref = th.gated_match_reference(*g_args, **g_kw)
-    torch.cuda.synchronize()
-    err = _assert_exact("gated_match", a, b, ref)
+    # ---- gated_match: the built map, the merge tier off, the full map
     n_ok = int(ok.sum())
+    built, a = _gated_case(th, "1024 x 16384 built map", g_args, g_kw)
     matched = int((pid >= 0).sum())
     ties = int(((a[1] < 128) & (a[0] < 64)).sum())
-    print(f"gated_match {k1} x {k2}: d1 i1 d2 i2 equal the plain version exactly; "
-          f"{matched} of {n_ok} valid keypoints matched, {ties} on the tied block, "
+    print(f"  {matched} of {n_ok} valid keypoints matched, {ties} on the tied block, "
           f"{int(m.pt_valid.sum())} valid map points")
     check(matched > 0.3 * n_ok, "the gates let too few matches through")
-    off = th.gated_match(*g_args, **dict(g_kw, merge_radius=-1.0))
-    off_ref = th.gated_match_reference(*g_args, **dict(g_kw, merge_radius=-1.0))
-    err = max(err, _assert_exact("gated_match (merge tier off)", off, off, off_ref))
-    check(bool((off[2] == 1e9).all()), "merge tier off still matched")
-    ms, busy = device_ms(lambda: th.gated_match(*g_args, **g_kw))
-    plain_ms, _ = device_ms(lambda: th.gated_match_reference(*g_args, **g_kw), n=10)
-    # the pairs whose distance this run's data needs: valid query x valid
-    # point; 256 multiply-adds a pair for the sign product, ~17 float
-    # operations a pair for the two gates
-    pairs = float(g_args[1][:, 3].sum()) * float(g_args[3][:, 3].sum())
-    b_ms, b_by = bound((k1 + k2) * (256 + 32) + k1 * 16,
-                       f32_ops=17.0 * pairs, int8_ops=2.0 * 256 * pairs)
-    print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms (queue busy "
-          f"share {busy:.3f}), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-          f"({pairs:.0f} unmasked pairs)")
-    out["gated_match"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "max_abs_err": err}
+    off_kw = dict(g_kw, merge_radius=-1.0)
+    off, a_off = _gated_case(th, "1024 x 16384 built map, merge tier off", g_args, off_kw)
+    check(bool((a_off[2] == 1e9).all()), "merge tier off still matched")
+    crowd, _ = _gated_case(th, "1024 x 16384 full map", g_full, g_full_kw)
+    g_rows = [built, off, crowd]
+    err = max(r["max_abs_err"] for r in g_rows)
+    out = {"gated_match": dict(built, max_abs_err=err, rows=g_rows)}
 
-    # ---- hamming_top2, both directions of the relocalization match
-    s1, v1, s2, v2 = desc.signs, ok, m.pt_signs, m.pt_valid
-    rows, err = [], 0.0
-    for name, args in (("1024 x 16384", (s1, v1, s2, v2)),
-                       ("16384 x 1024", (s2, v2, s1, v1))):
-        a = th.hamming_top2(*args)
-        b = th.hamming_top2(*args)
-        ref = th.hamming_top2_reference(*args)
-        torch.cuda.synchronize()
-        err = max(err, _assert_exact(f"hamming_top2 {name}", a, b, ref))
-        tied = int(((a[0] == a[1]) & (a[0] < 1e9)).sum())
-        ms, busy = device_ms(lambda: th.hamming_top2(*args))
-        plain_ms, _ = device_ms(lambda: th.hamming_top2_reference(*args), n=10)
-        n1, n2 = args[0].shape[0], args[2].shape[0]
-        pairs = float(args[1].sum()) * float(args[3].sum())
-        b_ms, b_by = bound((n1 + n2) * (256 + 1) + n1 * 12, int8_ops=2.0 * 256 * pairs)
-        print(f"hamming_top2 {name}: best second idx equal the plain version "
-              f"exactly ({tied} rows with second == best)")
-        print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms (queue busy "
-              f"share {busy:.3f}), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}")
-        rows.append({"shape": name, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by})
-    mt = th.match_kernel(s1, v1, s2, v2, max_distance=float(cfg.orb.match_threshold))
+    # ---- hamming_top2: both directions of the relocalization match on the
+    # built and the full map, and a loop verification's keyframe pair
+    s1, v1 = desc.signs, ok
+    t_rows = [_top2_case(th, name, args) for name, args in (
+        ("1024 x 16384 built map", (s1, v1, m.pt_signs, m.pt_valid)),
+        ("16384 x 1024 built map", (m.pt_signs, m.pt_valid, s1, v1)),
+        ("1024 x 16384 full map", (s1, v1, full.pt_signs, full.pt_valid)),
+        ("16384 x 1024 full map", (full.pt_signs, full.pt_valid, s1, v1)),
+        ("1024 x 1024 keyframes 5 / 2", (m.kp_signs[5], m.kp_ok[5],
+                                         m.kp_signs[2], m.kp_ok[2])),
+    )]
+    mt = th.match_kernel(s1, v1, m.pt_signs, m.pt_valid,
+                         max_distance=float(cfg.orb.match_threshold))
     print(f"match_kernel: {int(mt.valid.sum())} mutual matches of {n_ok} keypoints")
     check(int(mt.valid.sum()) > 50, "too few mutual matches for a relocalization")
-    out["hamming_top2"] = dict(rows[0], max_abs_err=err, rows=rows)
+    err = max(r["max_abs_err"] for r in t_rows)
+    out["hamming_top2"] = dict(t_rows[0], max_abs_err=err, rows=t_rows)
     return out
 
 

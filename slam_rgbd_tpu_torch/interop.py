@@ -6,7 +6,8 @@ ring), the keyframe map, the pose-graph edge list, and per keyframe the
 keypoints and descriptors. These helpers move that state between the two
 packages, so that both can compute the same step from the same inputs. The
 JAX side is handed over as numpy arrays (`np.asarray` of each field); this
-module never imports it.
+module never imports it. Every `*_from_numpy` takes the device to build on:
+there is no default, as there is none for the port's entry points' data.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _fields_from(cls, src, device):
     return cls(**{k: _to_tensor(get(k), device) for k in names})
 
 
-def pyramid_from_numpy(levels, device="cpu") -> tuple:
+def pyramid_from_numpy(levels, device) -> tuple:
     """Sequence of per-level dicts of numpy arrays -> tuple of tensor dicts
     (float32, with `valid` as bool)."""
     out = []
@@ -67,7 +68,7 @@ def pyramid_to_numpy(pyr) -> tuple:
     return tuple({k: v.cpu().numpy() for k, v in level.items()} for level in pyr)
 
 
-def map_from_numpy(src, device="cpu") -> MapState:
+def map_from_numpy(src, device) -> MapState:
     """A map state of the JAX package (the object, or a dict of its fields as
     numpy arrays) -> the port's `MapState`, every field."""
     return _fields_from(MapState, src, device)
@@ -79,7 +80,7 @@ def map_to_numpy(m: MapState) -> dict:
             for f in dataclasses.fields(MapState)}
 
 
-def edges_from_numpy(src, device="cpu") -> EdgeList:
+def edges_from_numpy(src, device) -> EdgeList:
     """An edge list of the JAX package (object or dict of numpy arrays) ->
     the port's `EdgeList`."""
     return _fields_from(EdgeList, src, device)
@@ -90,12 +91,12 @@ def edges_to_numpy(e: EdgeList) -> dict:
             for f in dataclasses.fields(EdgeList)}
 
 
-def keypoints_from_numpy(src, device="cpu") -> Keypoints:
+def keypoints_from_numpy(src, device) -> Keypoints:
     """`Keypoints` of the JAX package (uv, response, angle, level, valid)."""
     return _fields_from(Keypoints, src, device)
 
 
-def descriptors_from_numpy(src, device="cpu") -> Descriptors:
+def descriptors_from_numpy(src, device) -> Descriptors:
     """`Descriptors` of the JAX package; the packed uint32 words keep their
     bits as int32."""
     return _fields_from(Descriptors, src, device)

@@ -39,6 +39,7 @@ _SIGNATURES = {
         [_P] + [_P, _L] * 4 + [_I] * 4 + [_P] * 4, _I),
     "gn_reduce_empty_launch": ([_P], _I),
     "gn_reduce_error_string": ([_I], ctypes.c_char_p),
+    "hamming_workspace": ([_I, _I, _P, _P], None),
     "hamming_top2_launch": ([_P, _P, _I, _P, _P, _I] + [_P] * 6, _I),
     "gated_match_launch": (
         [_P, _P, _I, _P, _P, _I] + [_F] * 3 + [_P] * 7, _I),

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from slam_rgbd_tpu_torch.core.config import CameraIntrinsics, ICPConfig
+from slam_rgbd_tpu_torch.ops.workspace import workspace
 
 SRC_CHANNELS = 8
 TGT_CHANNELS = 10
@@ -245,28 +246,6 @@ def _params(cam: CameraIntrinsics, cfg: ICPConfig, radius: int, h: int, w: int):
     return _Params(h, w, radius, **_constants(cam, cfg)), -(-h * w // _BLOCK_PIXELS)
 
 
-_workspaces: dict = {}
-
-
-def _workspace(device, stream: int, n_blocks: int, n_b: int):
-    """(partial table, ticket counters) of a launch shape, reused by every
-    later launch of that shape on the stream and kept for the life of the
-    process. `stream` is the stream's handle: launches on one stream run in
-    order, also where a new stream has taken over a destroyed one's handle,
-    and a launch leaves the counters zeroed once its last block has run. A
-    launch that CUDA refuses never starts and so leaves them zeroed as well;
-    a kernel that aborts midway poisons the CUDA context, after which no
-    launch of the process succeeds anyway."""
-    key = (device.index, stream, n_blocks, n_b)
-    ws = _workspaces.get(key)
-    if ws is None:
-        ws = _workspaces[key] = (
-            torch.empty(n_b * n_blocks * _PARTIAL_ROW, dtype=torch.float32, device=device),
-            torch.zeros(n_b, dtype=torch.int32, device=device),
-        )
-    return ws
-
-
 def _launch(T, mu, src, tgt, cam, cfg, radius, batched: bool, step: bool):
     """One launch of the kernel on the current stream (no host sync) ->
     the (B, 64) or (64,) tensor it wrote."""
@@ -289,7 +268,7 @@ def _launch(T, mu, src, tgt, cam, cfg, radius, batched: bool, step: bool):
         out = torch.empty(_OUT_FLOATS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch, counters = _workspace(dev, stream, n_blocks, n_b)
+        scratch, counters = workspace(dev, stream, n_b * n_blocks * _PARTIAL_ROW, n_b)
         err = lib.gn_reduce_launch(
             ctypes.byref(params), T.data_ptr(), strides[0], mu.data_ptr(), strides[1],
             src.data_ptr(), strides[2], tgt.data_ptr(), strides[3],

@@ -22,18 +22,23 @@ nothing left returns 1e9 and index 0. Callers threshold on the distance.
 
 Each wrapper dispatches on the device of its first argument: a CPU tensor
 goes to the plain version (`*_reference`), a CUDA tensor to the hand-written
-kernel in `csrc/hamming.cu`, and any error there raises. The kernels work on
-packed bits (bit = sign > 0). A row of zeros, which an empty map slot holds,
-therefore reads another distance there than the sign product's 128; such
-rows are always masked, so every unmasked pair agrees exactly.
+kernel in `csrc/hamming.cu`, and any error there raises. The kernels take
+the same sign product on the int8 tensor cores from the rows as they are, so
+every output equals the plain version's bit for bit, a valid row of zeros
+included (it reads 128). On the card a call is one kernel launch and no
+other device operation.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from slam_rgbd_tpu_torch.ops.workspace import workspace
 
 N_BITS = 256
 META = 8
@@ -159,10 +164,29 @@ def _check_gated(signs1, q_meta, signs2, p_meta) -> None:
         raise ValueError(f"{fn}: empty descriptor set")
 
 
-def _bit_scratch(k1: int, k2: int, device):
-    """Scratch for the packed descriptors: 8 words of 32 bits a row."""
-    return (torch.empty((k1, N_BITS // 32), dtype=torch.int32, device=device),
-            torch.empty((k2, N_BITS // 32), dtype=torch.int32, device=device))
+def _check_aligned(fn: str, *tensors) -> None:
+    """The kernels read rows in 16-byte pieces."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: a {tuple(t.shape)} input is not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_size(k1: int, k2: int) -> tuple[int, int]:
+    """(table words, ticket counters) a launch at (k1, k2) needs: the
+    kernel library's own plan."""
+    from slam_rgbd_tpu_torch.ops import _build
+
+    words, counters = ctypes.c_long(), ctypes.c_int()
+    _build.load().hamming_workspace(k1, k2, ctypes.byref(words), ctypes.byref(counters))
+    return words.value, counters.value
+
+
+def _scratch(k1: int, k2: int, dev):
+    """(partial table, ticket counters, stream handle) of a launch at (k1, k2)
+    on the current stream of `dev`."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (*workspace(dev, stream, *_workspace_size(k1, k2)), stream)
 
 
 def hamming_top2(signs1, valid1, signs2, valid2):
@@ -178,22 +202,22 @@ def hamming_top2(signs1, valid1, signs2, valid2):
     if signs1.device.type != "cuda":
         raise ValueError(f"hamming_top2: no kernel for device {signs1.device}")
     _check_top2(signs1, valid1, signs2, valid2)
+    _check_aligned("hamming_top2", signs1, signs2)
     from slam_rgbd_tpu_torch.ops import _build
 
     lib = _build.load()
     dev = signs1.device
     k1, k2 = signs1.shape[0], signs2.shape[0]
-    bits1, bits2 = _bit_scratch(k1, k2, dev)
     best = torch.empty(k1, dtype=torch.float32, device=dev)
     second = torch.empty(k1, dtype=torch.float32, device=dev)
     idx = torch.empty(k1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        table, counters, stream = _scratch(k1, k2, dev)
         err = lib.hamming_top2_launch(
             signs1.data_ptr(), valid1.data_ptr(), k1,
             signs2.data_ptr(), valid2.data_ptr(), k2,
-            bits1.data_ptr(), bits2.data_ptr(),
-            best.data_ptr(), second.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            table.data_ptr(), counters.data_ptr(),
+            best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(err, "hamming_top2 launch")
     hamming_top2.launches += 1
@@ -218,24 +242,24 @@ def gated_match(signs1, q_meta, signs2, p_meta, px_radius: float = 6.0,
     if signs1.device.type != "cuda":
         raise ValueError(f"gated_match: no kernel for device {signs1.device}")
     _check_gated(signs1, q_meta, signs2, p_meta)
+    _check_aligned("gated_match", signs1, q_meta, signs2, p_meta)
     from slam_rgbd_tpu_torch.ops import _build
 
     lib = _build.load()
     dev = signs1.device
     k1, k2 = signs1.shape[0], signs2.shape[0]
     px2, tol, mr2 = _gate_constants(px_radius, z_rel_tol, merge_radius)
-    bits1, bits2 = _bit_scratch(k1, k2, dev)
     d1 = torch.empty(k1, dtype=torch.float32, device=dev)
     d2 = torch.empty(k1, dtype=torch.float32, device=dev)
     i1 = torch.empty(k1, dtype=torch.int32, device=dev)
     i2 = torch.empty(k1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        table, counters, stream = _scratch(k1, k2, dev)
         err = lib.gated_match_launch(
             signs1.data_ptr(), q_meta.data_ptr(), k1,
             signs2.data_ptr(), p_meta.data_ptr(), k2,
-            px2, tol, mr2, bits1.data_ptr(), bits2.data_ptr(),
-            d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), i2.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            px2, tol, mr2, table.data_ptr(), counters.data_ptr(),
+            d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), i2.data_ptr(), stream,
         )
     _build.check(err, "gated_match launch")
     gated_match.launches += 1

@@ -364,7 +364,7 @@ def revisit_map():
             m, jnp.asarray(poses[-1]), float(i), jnp.asarray(uv), jnp.asarray(pc),
             jnp.asarray(ok | (i in (2, 3, 4, 5))), jnp.asarray(signs),
             jnp.full((K,), -1, jnp.int32))
-    return m, interop.map_from_numpy(m), poses
+    return m, interop.map_from_numpy(m, "cpu"), poses
 
 
 def test_place_signatures_match_jax_and_kf_sig(revisit_map):

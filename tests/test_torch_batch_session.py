@@ -370,7 +370,7 @@ def test_batch_steady_and_traj_append_match_jax(frames, scenario):
         jnp.asarray(last), cam=CAM, icp_cfg=CFG.icp, kcfg=CFG.keyframes)
     launches = tg.gn_reduce_batched.launches
     pyr_t, T2_t, m2_t, s_t = tbs._batch_steady(
-        interop.pyramid_from_numpy(_np(prev)), torch.tensor(depth[5].astype(np.int32)),
+        interop.pyramid_from_numpy(_np(prev), "cpu"), torch.tensor(depth[5].astype(np.int32)),
         torch.tensor(rgb[5]), torch.tensor(Tw), torch.tensor(motion), torch.tensor(last),
         CAM, CFG.icp, CFG.keyframes)
     assert tg.gn_reduce_batched.launches == launches
@@ -406,7 +406,7 @@ def test_icp_align_batched_stacked_starts_match_jax(frames, hypotheses):
     pyr = lambda i: jax.vmap(lambda d, c: jcam.build_frame_pyramid(d, CAM, levels=2, rgb=c))(
         jnp.asarray(depth[i]), jnp.asarray(rgb[i]))
     prev_j, curr_j = pyr(4), pyr(5)
-    prev_t, curr_t = (interop.pyramid_from_numpy(_np(p)) for p in (prev_j, curr_j))
+    prev_t, curr_t = (interop.pyramid_from_numpy(_np(p), "cpu") for p in (prev_j, curr_j))
     prior = np.stack([_exp([0.002, 0, 0, 0, 0, 0]), EYE]).astype(np.float32)
     if hypotheses == 3:
         prior[1, :2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]

@@ -106,14 +106,59 @@ def _descriptor_sets(rng, k1, k2):
     return s1, v1, s2, v2, src
 
 
+def _variant(rng, k1, k2, case):
+    """`_descriptor_sets` with one of the cases the kernels must get right:
+      random     - as made;
+      full       - every column valid, no zero rows (a full map);
+      last_tile  - only the last 32 columns valid (a sparse map whose points
+                   all lie in the last column tile), half of them copied
+                   into queries;
+      masked_rows - the first 256 queries and every fifth invalid: two query
+                   tiles with nothing valid give (1e9, 0, 1e9);
+      ties       - queries 0-63 exact copies of columns 5-44, which recur
+                   k2 / 2 further on: the best distance 0 in two column
+                   tiles, the first index wins, second == best;
+      zero_row   - a valid query of zeros and a valid column of zeros, each
+                   at distance 128 from everything."""
+    s1, v1, s2, v2, src = _descriptor_sets(rng, k1, k2)
+    v1[3] = True
+    signs = np.array([-1, 1], np.int8)
+    if case == "full":
+        s2[-64:] = rng.choice(signs, size=(64, 256))
+        v2[:] = True
+    elif case == "last_tile":
+        s2[-32:] = rng.choice(signs, size=(32, 256))
+        v2[:] = False
+        v2[-32:] = True
+        src[:64:2] = np.arange(k2 - 32, k2)
+        s1[:64:2] = s2[-32:]
+    elif case == "masked_rows":
+        v1[:256] = False
+        v1[::5] = False
+    elif case == "ties":
+        src[:64] = 5 + np.arange(64) % 40
+        s1[:64] = s2[src[:64]]
+        v1[:64] = True
+    elif case == "zero_row":
+        s1[7] = 0
+        v1[7] = True
+        s2[100] = 0
+        v2[100] = True
+    return s1, v1, s2, v2, src
+
+
+_CASES = [(1024, 16384, "random"), (16384, 1024, "random"), (100, 333, "random"),
+          (1024, 1024, "random"), (1024, 16384, "full"), (1024, 16384, "last_tile"),
+          (1024, 16384, "masked_rows"), (1024, 16384, "ties"), (1024, 16384, "zero_row")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k1,k2", [(1024, 16384), (16384, 1024), (100, 333)])
-def test_hamming_top2_kernel_matches_reference_on_card(cuda_device, k1, k2):
+@pytest.mark.parametrize("k1,k2,case", _CASES)
+def test_hamming_top2_kernel_matches_reference_on_card(cuda_device, k1, k2, case):
     """All three outputs equal the plain version's exactly (distances are
     integers, ties go to the first index), twice alike."""
     rng = np.random.default_rng(k1 + k2)
-    s1, v1, s2, v2, _ = _descriptor_sets(rng, k1, k2)
-    v1[3] = True
+    s1, v1, s2, v2, src = _variant(rng, k1, k2, case)
     args = [torch.tensor(x, device=cuda_device) for x in (s1, v1, s2, v2)]
     before = th.hamming_top2.launches
     out = th.hamming_top2(*args)
@@ -124,21 +169,28 @@ def test_hamming_top2_kernel_matches_reference_on_card(cuda_device, k1, k2):
     for a, b, c in zip(out, again, ref):
         assert a.dtype == c.dtype and torch.equal(a, c) and torch.equal(a, b)
     best, second, idx = (x.cpu().numpy() for x in out)
-    assert (best[~v1] == 1e9).all() and (idx[~v1] == 0).all()
+    assert (best[~v1] == 1e9).all() and (idx[~v1] == 0).all() and (second[~v1] == 1e9).all()
     assert (best[v1] < 1e9).all() and (best <= second).all()
+    if case == "ties":
+        assert (best[:64] == 0).all() and (second[:64] == 0).all()
+        np.testing.assert_array_equal(idx[:64], src[:64])
+    elif case == "zero_row":
+        assert best[7] == 128 and second[7] == 128 and idx[7] == np.flatnonzero(v2)[0]
+    elif case == "last_tile":
+        assert (idx[v1] >= k2 - 32).all() and (best[:64:2][v1[:64:2]] == 0).all()
     m = th.match_kernel(*args)
     assert int(m.valid.sum()) > 0 and not bool(m.valid[~args[1]].any())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k1,k2", [(1024, 16384), (100, 333)])
+@pytest.mark.parametrize("k1,k2,case", _CASES[:1] + _CASES[2:])
 @pytest.mark.parametrize("merge_radius", [0.05, -1.0])
-def test_gated_match_kernel_matches_reference_on_card(cuda_device, k1, k2,
+def test_gated_match_kernel_matches_reference_on_card(cuda_device, k1, k2, case,
                                                       merge_radius):
     """d1, i1, d2, i2 equal the plain version's exactly: the gate arithmetic
     rounds alike in both (no contraction), so no margin is needed."""
     rng = np.random.default_rng(k1 + k2)
-    s1, v1, s2, v2, src = _descriptor_sets(rng, k1, k2)
+    s1, v1, s2, v2, src = _variant(rng, k1, k2, case)
     p_xyz = rng.uniform(-2, 2, size=(k2, 3)).astype(np.float32)
     p_xyz[:, 2] = rng.uniform(0.5, 4.0, size=k2)
     p_xyz[k2 // 2 + 5: k2 // 2 + 45] = p_xyz[5:45]
@@ -162,11 +214,19 @@ def test_gated_match_kernel_matches_reference_on_card(cuda_device, k1, k2,
     assert th.gated_match.launches == before + 2
     for a, b, c in zip(out, again, ref):
         assert a.dtype == c.dtype and torch.equal(a, c) and torch.equal(a, b)
-    d1, _, d2, i2 = (x.cpu().numpy() for x in out)
-    assert (d1 < 64).sum() > k1 // 8  # the gates let real matches through
+    d1, i1, d2, i2 = (x.cpu().numpy() for x in out)
+    assert (d1[~v1] == 1e9).all() and (i1[~v1] == 0).all()
+    if case == "last_tile":
+        hit = d1 < 1e9
+        assert hit.sum() > 0 and (i1[hit] >= k2 - 32).all()
+    else:
+        assert (d1 < 64).sum() > k1 // 8  # the gates let real matches through
+    if case == "ties":
+        tied = d1[:64] == 0
+        assert tied.sum() > 32 and (i1[:64][tied] == src[:64][tied]).all()
     if merge_radius < 0:
         assert (d2 == 1e9).all() and (i2 == 0).all()
-    else:
+    elif case != "last_tile":
         assert (d2 < 40).sum() > k1 // 16
 
 
@@ -440,25 +500,38 @@ def test_kernel_at_a_width_no_multiple_of_four_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gn_reduce", "gn_step", "gn_reduce_batched",
-                                  "gn_step_batched"])
+                                  "gn_step_batched", "gated_match", "hamming_top2"])
 def test_a_call_is_one_launch_and_nothing_else_on_card(cuda_device, name):
     """A profiler trace of one call holds one device operation: the kernel
-    (no copy, fill or second kernel around it)."""
+    (no copy, fill, pack or second kernel around it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    T, mu, src, tgt, lcam = _batched_problems(cuda_device, 2, CAM)
-    if "batched" not in name:
-        T, mu, src, tgt = T[0], mu[0], src[0], tgt[0]
-    fn = getattr(tg, name)
-    fn(T, mu, src, tgt, lcam, ICPConfig(), 4)  # builds, makes the workspace
+    if name in ("gated_match", "hamming_top2"):
+        rng = np.random.default_rng(0)
+        s1, v1, s2, v2, _ = _descriptor_sets(rng, 1024, 16384)
+        sets = [torch.tensor(x, device=cuda_device) for x in (s1, v1, s2, v2)]
+        if name == "gated_match":
+            meta = [torch.zeros((len(v), 8), device=cuda_device) for v in (v1, v2)]
+            for m, v in zip(meta, sets[1::2]):
+                m[:, 3] = v.float()
+            sets = [sets[0], meta[0], sets[2], meta[1]]
+        args, kernel = sets, name + "_kernel"
+        fn = getattr(th, name)
+    else:
+        T, mu, src, tgt, lcam = _batched_problems(cuda_device, 2, CAM)
+        if "batched" not in name:
+            T, mu, src, tgt = T[0], mu[0], src[0], tgt[0]
+        args, kernel = (T, mu, src, tgt, lcam, ICPConfig(), 4), "gn_kernel"
+        fn = getattr(tg, name)
+    fn(*args)  # builds, makes the workspace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(T, mu, src, tgt, lcam, ICPConfig(), 4)
+        fn(*args)
         torch.cuda.synchronize()
     on_device = [(ev.key, ev.count) for ev in prof.key_averages()
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
     assert len(on_device) == 1 and on_device[0][1] == 1, on_device
-    assert "gn_kernel" in on_device[0][0]
+    assert kernel in on_device[0][0]
 
 
 @pytest.mark.cuda

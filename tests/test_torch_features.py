@@ -125,7 +125,7 @@ def test_descriptors_on_jax_keypoints(jax_features):
     """Bit floor: >= 99% of all bits equal and every valid keypoint within
     Hamming 8 of its JAX descriptor; orientation to 1e-3 rad."""
     kp_j, pyr_j, desc_j = jax_features
-    kp_t = interop.keypoints_from_numpy(kp_j)
+    kp_t = interop.keypoints_from_numpy(kp_j, "cpu")
     desc_t = torb.describe(kp_t, tuple(torch.tensor(np.asarray(p)) for p in pyr_j))
     valid = np.asarray(kp_j.valid)
     ham = (desc_t.signs.numpy() != np.asarray(desc_j.signs)).sum(axis=1)
@@ -137,7 +137,7 @@ def test_descriptors_on_jax_keypoints(jax_features):
     np.testing.assert_array_equal(desc_t.packed.numpy().view(np.uint32)[agree],
                                   np.asarray(desc_j.packed)[agree])
     assert set(np.unique(desc_t.signs.numpy())) == {-1, 1}
-    back = interop.descriptors_from_numpy(desc_j)
+    back = interop.descriptors_from_numpy(desc_j, "cpu")
     np.testing.assert_array_equal(back.packed.numpy().view(np.uint32), np.asarray(desc_j.packed))
 
 
@@ -164,7 +164,7 @@ def test_keypoint_depth_matches_jax(frame, jax_features):
     kp_j = jax_features[0]
     depth_m = np.asarray(jcam.depth_to_metres(jnp.asarray(frame[0]), CAM))
     pts_j, ok_j = jorb.keypoint_depth(kp_j, jnp.asarray(depth_m), CAM)
-    pts_t, ok_t = torb.keypoint_depth(interop.keypoints_from_numpy(kp_j),
+    pts_t, ok_t = torb.keypoint_depth(interop.keypoints_from_numpy(kp_j, "cpu"),
                                       torch.tensor(depth_m), CAM)
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     np.testing.assert_array_equal(pts_t.numpy(), np.asarray(pts_j))

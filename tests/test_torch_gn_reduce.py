@@ -66,7 +66,7 @@ def _mu(T, src, cam):
 
 
 def _port_planes(src, tgt):
-    (s,), (t,) = pyramid_from_numpy([src]), pyramid_from_numpy([tgt])
+    (s,), (t,) = pyramid_from_numpy([src], "cpu"), pyramid_from_numpy([tgt], "cpu")
     return ticp.level_planes(s)[: tg.SRC_CHANNELS].contiguous(), ticp.level_planes(t)
 
 

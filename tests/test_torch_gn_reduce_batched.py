@@ -70,7 +70,7 @@ def problems():
 def _port_inputs(Ts, mus, levels):
     srcs, tgts = [], []
     for src, tgt in levels:
-        (s,), (t,) = pyramid_from_numpy([src]), pyramid_from_numpy([tgt])
+        (s,), (t,) = pyramid_from_numpy([src], "cpu"), pyramid_from_numpy([tgt], "cpu")
         srcs.append(ticp.level_planes(s)[: tg.SRC_CHANNELS])
         tgts.append(ticp.level_planes(t))
     return (torch.from_numpy(Ts), torch.from_numpy(mus),
@@ -168,7 +168,7 @@ def batch():
     prior[2, :2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
     stack = lambda ps: jax.tree.map(lambda *xs: jnp.stack(xs), *ps)
     prev_j, curr_j = stack(prev), stack(curr)
-    to_port = lambda p: pyramid_from_numpy(jax.tree.map(np.array, p))
+    to_port = lambda p: pyramid_from_numpy(jax.tree.map(np.array, p), "cpu")
     return prev_j, curr_j, to_port(prev_j), to_port(curr_j), prior
 
 

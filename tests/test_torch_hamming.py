@@ -51,15 +51,58 @@ def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_top2_reference_matches_pallas_and_xla(rng, masked):
-    s1, v1, s2, v2 = _sets(rng)
-    if not masked:
-        s2[-16:] = 1
-        v1[:], v2[:] = True, True
+# Inputs that straddle the Pallas kernels' 2048-column tiles (`_K2_TILE`):
+# 256 queries against 4096 columns, two tiles.
+_EDGE_K1, _EDGE_K2 = 256, 4096
+_HALF = _EDGE_K2 // 2
+
+
+def _edge_signs(rng):
+    """'tiles': each query an exact copy of a column of the first tile, which
+    is duplicated in the second (a tie at distance 0 across tiles: the
+    first index must win, and second == best); the first 64 queries and
+    every 7th are invalid. 'lone': the same queries against a set whose one
+    valid column is the last."""
+    s2 = rng.choice(np.array([-1, 1], np.int8), size=(_EDGE_K2, 256))
+    s2[_HALF:] = s2[:_HALF]
+    src = rng.integers(0, _HALF, size=_EDGE_K1)
+    s1 = s2[src].copy()
+    v1 = np.ones(_EDGE_K1, bool)
+    v1[:64] = False
+    v1[::7] = False
+    v2 = np.ones(_EDGE_K2, bool)
+    lone = np.zeros(_EDGE_K2, bool)
+    lone[-1] = True
+    return {"tiles": (s1, v1, s2, v2), "lone": (s1, v1, s2, lone), "src": src}
+
+
+@pytest.fixture(scope="module")
+def top2_edges():
+    """The edge input sets and the Pallas kernel's answers on each (interpret
+    mode), computed once for the module."""
+    sets = _edge_signs(np.random.default_rng(6))
+    for name in ("tiles", "lone"):
+        arrays = sets[name]
+        sets[name] = (arrays, [np.asarray(x) for x in
+                               hp.hamming_top2(*_j(*arrays), interpret=True)])
+    return sets
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param("unmasked", id="False"), pytest.param("masked", id="True"),
+    "ties_across_tiles", "masked_rows", "lone_last_column"])
+def test_top2_reference_matches_pallas_and_xla(rng, top2_edges, case):
+    if case in ("unmasked", "masked"):
+        s1, v1, s2, v2 = _sets(rng)
+        if case == "unmasked":
+            s2[-16:] = 1
+            v1[:], v2[:] = True, True
+        pb, ps, pi = (np.asarray(x) for x in
+                      hp.hamming_top2(*_j(s1, v1, s2, v2), interpret=True))
+    else:
+        (s1, v1, s2, v2), (pb, ps, pi) = top2_edges[
+            "lone" if case == "lone_last_column" else "tiles"]
     best, second, idx = (x.numpy() for x in th.hamming_top2(*_t(s1, v1, s2, v2)))
-    pb, ps, pi = (np.asarray(x) for x in
-                  hp.hamming_top2(*_j(s1, v1, s2, v2), interpret=True))
     np.testing.assert_array_equal(best, pb)
     np.testing.assert_array_equal(second, ps)
     np.testing.assert_array_equal(idx, pi)
@@ -71,10 +114,21 @@ def test_top2_reference_matches_pallas_and_xla(rng, masked):
     np.testing.assert_array_equal(best, d.min(1))
     d[np.arange(len(d)), d.argmin(1)] = 1e9
     np.testing.assert_array_equal(second, d.min(1))
-    # the tie block really tied, and an all-invalid row reads (1e9, 0)
-    assert (best == second).sum() >= 16
-    if masked:
+    # an all-invalid row reads (1e9, 0, 1e9)
+    if case != "unmasked":
         assert (best[~v1] == 1e9).all() and (idx[~v1] == 0).all()
+        assert (second[~v1] == 1e9).all()
+    if case in ("unmasked", "masked"):
+        assert (best == second).sum() >= 16  # the tie block really tied
+    elif case == "ties_across_tiles":
+        src = top2_edges["src"]
+        assert (best[v1] == 0).all() and (second[v1] == 0).all()
+        np.testing.assert_array_equal(idx[v1], src[v1])  # the first tile's copy
+    elif case == "masked_rows":
+        assert (~v1).sum() > 64 and (best[v1] < 1e9).all()
+    else:  # one valid column, the last: no second anywhere
+        assert (idx[v1] == _EDGE_K2 - 1).all() and (second == 1e9).all()
+        assert (best[v1] < 1e9).all()
 
 
 def test_top2_free_sizes_and_packed_oracle(rng):
@@ -157,10 +211,91 @@ def _perturbed(rng, uv, pts, signs):
     return uv_q, z_q, pts_q, signs_q
 
 
-@pytest.mark.parametrize("merge_radius", [0.08, -1.0])
-def test_gated_reference_matches_pallas(rng, merge_radius):
+def _meta(uv, z, ok, xyz):
+    return np.concatenate([uv, z[:, None], ok[:, None].astype(np.float32), xyz,
+                           (xyz * xyz).sum(1, keepdims=True)], 1).astype(np.float32)
+
+
+def _edge_scene(rng):
+    """Gated inputs over two 2048-column tiles. 'tiles': 4096 map points in
+    view whose second half repeats the first (signs, position, pixel), and
+    256 queries, each an exact descriptor copy of a point of the first half,
+    reobserved within 2 px, 2% of depth and 1 cm (gates 6 px, 8%, 8 cm): a
+    tie at distance 0 across tiles in both tiers; the first 64 queries and
+    every 7th invalid. 'lone': the same with only the last point valid,
+    which the first 32 valid queries reobserve."""
+    cam = CameraIntrinsics(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
+    sets = _edge_signs(rng)
+    s1, v1, s2, _ = sets["tiles"]
+    src = sets["src"].copy()
+    xyz = np.stack([rng.uniform(-1.5, 1.5, _HALF), rng.uniform(-1.0, 1.0, _HALF),
+                    rng.uniform(2.0, 4.0, _HALF)], 1).astype(np.float32)
+    xyz = np.concatenate([xyz, xyz])
+    uv = np.stack([cam.fx * xyz[:, 0] / xyz[:, 2] + cam.cx,
+                   cam.fy * xyz[:, 1] / xyz[:, 2] + cam.cy], 1).astype(np.float32)
+    p_meta = _meta(uv, xyz[:, 2], np.ones(_EDGE_K2, bool), xyz)
+    lone = p_meta.copy()
+    lone[:, 3] = 0.0
+    lone[-1, 3] = 1.0
+    src_lone = src.copy()
+    src_lone[np.flatnonzero(v1)[:32]] = _EDGE_K2 - 1
+    out = {}
+    for name, pm, at in (("tiles", p_meta, src), ("lone", lone, src_lone)):
+        off = rng.uniform(-1.0, 1.0, size=(_EDGE_K1, 2)).astype(np.float32)
+        q_uv = uv[at] + off
+        q_z = xyz[at, 2] * (1 + rng.uniform(-0.02, 0.02, _EDGE_K1)).astype(np.float32)
+        q_xyz = xyz[at] + rng.uniform(-0.005, 0.005, size=(_EDGE_K1, 3)).astype(np.float32)
+        sq = s1.copy()
+        sq[at == _EDGE_K2 - 1] = s2[-1]
+        out[name] = (sq, _meta(q_uv, q_z, v1, q_xyz), s2, pm)
+    return out, v1
+
+
+@pytest.fixture(scope="module")
+def gated_edges():
+    """The gated edge input sets and the Pallas kernel's answers on each
+    (interpret mode, merge radius 0.08), computed once for the module."""
+    sets, v1 = _edge_scene(np.random.default_rng(7))
+    kw = dict(px_radius=6.0, z_rel_tol=0.08, merge_radius=0.08)
+    return {name: (args, [np.asarray(x) for x in
+                          hp.gated_match(*_j(*args), interpret=True, **kw)])
+            for name, args in sets.items()}, v1
+
+
+@pytest.mark.parametrize("merge_radius,case", [
+    pytest.param(0.08, "scene", id="0.08"), pytest.param(-1.0, "scene", id="-1.0"),
+    pytest.param(0.08, "ties_across_tiles", id="ties_across_tiles"),
+    pytest.param(0.08, "masked_rows", id="masked_rows"),
+    pytest.param(0.08, "lone_last_column", id="lone_last_column")])
+def test_gated_reference_matches_pallas(rng, gated_edges, merge_radius, case):
     """`gated_match_reference` vs the Pallas kernel in interpret mode on the
-    same signs and gate data: d1, i1, d2, i2 exact, merge tier on and off."""
+    same signs and gate data: d1, i1, d2, i2 exact, merge tier on and off;
+    and on inputs over two Pallas column tiles: ties across them, invalid
+    queries, one valid column (the last)."""
+    kw = dict(px_radius=6.0, z_rel_tol=0.08, merge_radius=merge_radius)
+    if case != "scene":
+        sets, v1 = gated_edges
+        args, want = sets["lone" if case == "lone_last_column" else "tiles"]
+        got = [g.numpy() for g in th.gated_match(*_t(*args), **kw)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        d1, i1, d2, i2 = got
+        assert (d1[~v1] == 1e9).all() and (i1[~v1] == 0).all()
+        assert (d2[~v1] == 1e9).all() and (i2[~v1] == 0).all()
+        if case == "lone_last_column":
+            hit = np.flatnonzero(v1)[:32]
+            assert (d1[hit] == 0).all() and (i1[hit] == _EDGE_K2 - 1).all()
+            assert (i2[hit] == _EDGE_K2 - 1).all()
+            # any other row has the last column or nothing
+            for d, i in ((d1, i1), (d2, i2)):
+                assert (((d == 1e9) & (i == 0)) | (i == _EDGE_K2 - 1)).all()
+            assert ((d1 == 1e9) & v1).sum() > 64
+        else:  # both tiers tie at 0 across tiles: the first tile's point
+            assert (d1[v1] == 0).all() and (d2[v1] == 0).all()
+            assert (i1[v1] < _HALF).all() and (i2[v1] == i1[v1]).all()
+            if case == "masked_rows":
+                assert (~v1).sum() > 64
+        return
     cam, m, uv, pts, ok, signs = _map_scene(rng)
     uv_q, z_q, pts_q, signs_q = _perturbed(rng, uv, pts, signs)
     q_meta = np.concatenate([uv_q, z_q[:, None], ok[:, None].astype(np.float32),
@@ -174,7 +309,6 @@ def test_gated_reference_matches_pallas(rng, merge_radius):
         (xyz * xyz).sum(1, keepdims=True)], 1).astype(np.float32)
     pt_signs = np.asarray(m.pt_signs)
     assert (pt_signs[~np.asarray(m.pt_valid)] == 0).all()  # zero rows, masked
-    kw = dict(px_radius=6.0, z_rel_tol=0.08, merge_radius=merge_radius)
     got = th.gated_match(*_t(signs_q, q_meta.astype(np.float32), pt_signs, p_meta), **kw)
     want = hp.gated_match(*_j(signs_q, q_meta.astype(np.float32), pt_signs, p_meta),
                           interpret=True, **kw)
@@ -207,7 +341,7 @@ def test_match_against_map_matches_jax_both_backends(rng, merge):
     }
     np.testing.assert_array_equal(want["xla"], want["pallas"])
     got = tmap.match_against_map(
-        interop.map_from_numpy(m), *_t(signs_q, ok, uv_q, z_q, T),
+        interop.map_from_numpy(m, "cpu"), *_t(signs_q, ok, uv_q, z_q, T),
         kp_pts=torch.tensor(pts_q) if merge else None, **kw)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want["xla"])

@@ -45,7 +45,7 @@ def pairs():
     def pyr(depth, rgb):
         p = jcam.build_frame_pyramid(jnp.asarray(depth), CAM, levels=2,
                                      rgb=jnp.asarray(rgb))
-        return p, pyramid_from_numpy(jax.tree.map(np.array, p))
+        return p, pyramid_from_numpy(jax.tree.map(np.array, p), "cpu")
 
     return {"kept": (pyr(*fr[0]), pyr(*rolled)), "clamped": (pyr(*fr[0]), pyr(*fr[1]))}
 

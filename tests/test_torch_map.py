@@ -83,9 +83,9 @@ def test_empty_map_matches_jax():
     mt, mj = tmap.empty_map(KCFG, K, "cpu"), jmap.empty_map(KCFG, K)
     _assert_maps_equal(mt, mj)
     assert mt.capacity_kf == M and mt.capacity_pt == P
-    rt = interop.map_from_numpy(mj)
+    rt = interop.map_from_numpy(mj, "cpu")
     _assert_maps_equal(rt, mj)
-    _assert_maps_equal(interop.map_from_numpy(interop.map_to_numpy(mt)), mj)
+    _assert_maps_equal(interop.map_from_numpy(interop.map_to_numpy(mt), "cpu"), mj)
 
 
 def test_insert_cull_recycle_and_capacity_sequence(rng):
@@ -176,7 +176,7 @@ def test_edge_list_matches_jax(rng):
             np.testing.assert_array_equal(g, want, err_msg=name)
         assert int(nt) == int(nj)
     assert int(nt) == 3
-    rt = interop.edges_from_numpy(ej)
+    rt = interop.edges_from_numpy(ej, "cpu")
     np.testing.assert_array_equal(rt.T_meas.numpy(), np.asarray(ej.T_meas))
 
 

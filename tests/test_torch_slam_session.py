@@ -77,8 +77,8 @@ def jax_keyframes(frames):
 
 def _jax_features_on(sess, step):
     """Make the port session's feature stage return the JAX run's output."""
-    out = (interop.keypoints_from_numpy(step["kp"]),
-           interop.descriptors_from_numpy(step["desc"]),
+    out = (interop.keypoints_from_numpy(step["kp"], "cpu"),
+           interop.descriptors_from_numpy(step["desc"], "cpu"),
            torch.tensor(step["pts"]), torch.tensor(step["ok"]))
     sess._features = lambda depth, rgb: out
 
@@ -155,7 +155,7 @@ def test_reloc_matches_reloc_jit(frames, jax_keyframes, frame_i):
     m_j = jax_keyframes[-1]["map"]
     Tj, Cj, sj = jsess._reloc_jit(m_j, desc.signs, ok, pts, jnp.asarray(T_est), CFG, "xla")
     Tt, Ct, st = tsess._reloc(
-        interop.map_from_numpy(m_j), torch.tensor(np.asarray(desc.signs)),
+        interop.map_from_numpy(m_j, "cpu"), torch.tensor(np.asarray(desc.signs)),
         torch.tensor(np.asarray(ok)), torch.tensor(np.asarray(pts)),
         torch.tensor(T_est), CFG)
     sj, st = np.asarray(sj), st.numpy()
