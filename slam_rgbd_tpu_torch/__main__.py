@@ -1,8 +1,10 @@
 """Command line of the port: `python -m slam_rgbd_tpu_torch run synthetic:N`.
 
 Counterpart of the `run` verb of `slam_rgbd_tpu.cli`: runs the SLAM session
-over a synthetic sequence, writes the TUM trajectory and prints keyframes,
-map points and the ATE against ground truth. It runs on the CUDA device;
+over a synthetic sequence with the backend on its worker thread (as the
+reference's `run` does through its pipeline runner), drains it with a final
+backend pass, writes the TUM trajectory and prints keyframes, map points,
+loops and the ATE against ground truth. It runs on the CUDA device;
 `--device cpu` asks for the CPU.
 
     python -m slam_rgbd_tpu_torch run synthetic:200 --traj out.txt
@@ -30,17 +32,20 @@ def cmd_run(args) -> int:
     n = int(args.input.split(":")[1]) if ":" in args.input else 100
     cfg = _load_config(args.config)
     seq = SyntheticSequence(n, cfg.camera, device=args.device)
-    session = SLAMSession(cfg, device=args.device)
-    for ts, depth, rgb in seq:
-        session.process_frame(ts, depth, rgb)
-    session.flush_pipeline()
-    print(f"frames={session.state.frames} keyframes={session.state.keyframes} "
-          f"map_points={session.map_point_count()} lost={session.state.lost} "
-          f"relocalized={session.state.relocalized}")
-    if args.traj:
-        session.save_trajectory(args.traj)
-        print(f"trajectory -> {args.traj}")
-    _, est = session.poses()
+    session = SLAMSession(cfg, async_backend=True, device=args.device)
+    try:
+        for ts, depth, rgb in seq:
+            session.process_frame(ts, depth, rgb)
+        session.sync_backend(final_pass=True)
+        print(f"frames={session.state.frames} keyframes={session.state.keyframes} "
+              f"map_points={session.map_point_count()} loops={session.state.loops} "
+              f"lost={session.state.lost} relocalized={session.state.relocalized}")
+        if args.traj:
+            session.save_trajectory(args.traj)
+            print(f"trajectory -> {args.traj}")
+        _, est = session.poses()
+    finally:
+        session.close()
     rmse, _, _ = ate_rmse(est, seq.groundtruth()[: len(est)])
     print(f"ATE RMSE vs ground truth: {rmse * 100:.2f} cm")
     return 0

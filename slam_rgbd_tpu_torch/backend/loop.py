@@ -13,9 +13,11 @@ Counterpart of `slam_rgbd_tpu/backend/loop.py`:
     kernel on a CUDA device) followed by the robust 3D-3D solve of
     `features.pose3d`. Depth gives metric scale, so the solve is rigid.
 
-Keyframe indices are host integers; every result is a tensor on the map's
-device and nothing is read back here. The caller decides on the host whether
-to commit the loop edge and run the pose graph.
+The query index is a host integer; a candidate index may also be a () tensor
+on the map's device, the candidate search's own output, so that verification
+can follow the search without a read-back. Every result is a tensor on the
+map's device and nothing is read back here. The caller decides on the host
+whether to commit the loop edge and run the pose graph.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from typing import NamedTuple
 
 import torch
 
+import math
+
+from slam_rgbd_tpu_torch.core import se3
 from slam_rgbd_tpu_torch.features import match as fmatch
 from slam_rgbd_tpu_torch.features.pose3d import solve_pose3d
 from slam_rgbd_tpu_torch.mapping.map import MapState
@@ -68,7 +73,14 @@ class LoopVerification(NamedTuple):
     ok: torch.Tensor
 
 
-def verify_loop(m: MapState, query_idx: int, cand_idx: int,
+def _row(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] for a host integer or a () index tensor (no read-back)."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1).long())[0]
+    return x[i]
+
+
+def verify_loop(m: MapState, query_idx: int, cand_idx,
                 max_distance: float = 64.0, min_matches: int = 25,
                 generator: torch.Generator | None = None) -> LoopVerification:
     """Descriptor-match the two keyframes and solve the relative pose.
@@ -78,11 +90,11 @@ def verify_loop(m: MapState, query_idx: int, cand_idx: int,
     """
     mt = fmatch.match(
         m.kp_signs[query_idx], m.kp_ok[query_idx],
-        m.kp_signs[cand_idx], m.kp_ok[cand_idx],
+        _row(m.kp_signs, cand_idx), _row(m.kp_ok, cand_idx),
         max_distance=max_distance, ratio=0.9,
     )
     p1 = m.kp_pts[query_idx]  # (K, 3) query-camera frame
-    p2 = m.kp_pts[cand_idx][mt.idx2.long()]  # matched candidate-camera points
+    p2 = _row(m.kp_pts, cand_idx)[mt.idx2.long()]  # matched candidate-camera points
     res = solve_pose3d(p1, p2, mt.valid, iters=8, generator=generator)
     n_m = mt.valid.sum()
     # acceptance needs consensus, not a count: the solve must explain at
@@ -95,3 +107,19 @@ def verify_loop(m: MapState, query_idx: int, cand_idx: int,
         n_matches=n_m,
         ok=res.ok & (n_m >= min_matches) & consensus & (res.rmse < 0.06),
     )
+
+
+def edge_consistency(T_rel: torch.Tensor, Ti: torch.Tensor, Tj: torch.Tensor,
+                     max_t: float, max_deg: float):
+    """The consistency gate of a verified loop edge i -> j against the
+    current poses: the residual log(T_rel^-1 Ti^-1 Tj) must be finite and
+    within plausible accumulated drift (geometric verification can pass an
+    aliased match set, and one inconsistent weight-5 edge bends the whole
+    trajectory). -> (consistent () bool, t_err () m, r_err () rad)."""
+    resid = se3.log(se3.inverse(T_rel) @ se3.inverse(Ti) @ Tj)
+    t_err = torch.linalg.norm(resid[:3])
+    r_err = torch.linalg.norm(resid[3:])
+    consistent = (
+        torch.isfinite(resid).all() & (t_err <= max_t) & (r_err <= math.radians(max_deg))
+    )
+    return consistent, t_err, r_err

@@ -169,3 +169,16 @@ def optimize_pose_graph(
         torch.sum(torch.where(edges.valid[:, None], r * r, 0.0))
         / torch.clamp_min(n, 1))
     return PGResult(poses=T, rmse=rmse, n_edges=n)
+
+
+def ride_with_anchors(m, poses_new: torch.Tensor) -> torch.Tensor:
+    """Map points after a pose-graph solve moved the keyframes of map `m`
+    to `poses_new`: each valid point rides with its anchor (first-observing)
+    keyframe, X -> T_new[a] T_old[a]^-1 X; the others keep their rows.
+    Correcting only the keyframes would leave the structure where the
+    pre-loop trajectory put it, and every later association and BA pass
+    would fight the bent trajectory. -> (P, 3)."""
+    anchor = torch.clamp(m.pt_first_kf, 0, m.capacity_kf - 1).long()
+    delta = poses_new[anchor] @ se3.inverse(m.kf_pose[anchor])  # (P, 4, 4)
+    pt_new = (delta[:, :3, :3] @ m.pt_xyz[..., None])[..., 0] + delta[:, :3, 3]
+    return torch.where(m.pt_valid[:, None], pt_new, m.pt_xyz)

@@ -1,14 +1,22 @@
 """Synthetic RGB-D sequences with exact ground truth, rendered in torch.
 
-Counterpart of `slam_rgbd_tpu/io/synthetic.py` (without the sensor-noise
-model, which comes later): an analytic raycast of a box room cluttered with
-spheres and cuboids, coloured by a procedural 3D texture, seen along a
-smooth orbit. Rendering runs on any torch device.
+Counterpart of `slam_rgbd_tpu/io/synthetic.py`: an analytic raycast of a
+box room cluttered with spheres and cuboids, coloured by a procedural 3D
+texture, seen along a smooth orbit, and optionally corrupted like a real
+structured-light sensor (`NoiseSpec`). Rendering and noise run on any torch
+device.
+
+The noise is split in two. `apply_sensor_noise` is deterministic: it takes
+its random draws as tensors (`NoiseDraws`), so the same draws give the
+reference's result. `draw_noise` makes the draws from a `torch.Generator`
+on the frame's device, seeded from `NoiseSpec.seed` and the frame index;
+its bits are not those of `jax.random`, only their distributions are.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -142,6 +150,128 @@ def render_frame(T_wc, cam: CameraIntrinsics, spec: SceneSpec = SceneSpec(),
     return depth_raw, rgb_u8
 
 
+@dataclass(frozen=True)
+class NoiseSpec:
+    """Kinect-class RGB-D sensor noise (the reference's Astra operating
+    point): axial depth noise sigma_z = `depth_sigma_rel2` * z^2, dropout at
+    depth silhouettes plus uniform dropout, a per-frame RGB gain (flicker)
+    and per-pixel shot noise; optionally motion blur along the frame's
+    image flow and a slow sinusoidal exposure drift."""
+
+    depth_sigma_rel2: float = 1.4e-3  # m of std per m^2 of range
+    edge_dropout: float = 0.6  # P(drop) where the depth edge test fires
+    edge_rel_tol: float = 0.02  # neighbour depth ratio that counts as edge
+    random_dropout: float = 0.002  # uniform missing-return probability
+    rgb_sigma: float = 2.0  # shot noise, 0..255 units
+    flicker: float = 0.03  # max |gain - 1| per frame
+    seed: int = 11
+    # RGB box blur along the dominant image flow, scaled by the frame's
+    # motion (0 disables; 1.0 blurs over the full inter-frame flow)
+    motion_blur: float = 0.0
+    # sinusoidal global gain drift of this amplitude on top of the flicker
+    exposure_drift: float = 0.0
+    exposure_period_s: float = 4.0
+
+
+class NoiseDraws(NamedTuple):
+    """The random draws of one frame's noise, float32 on its device."""
+
+    depth_normal: torch.Tensor  # (H, W) standard normal: axial noise
+    edge_uniform: torch.Tensor  # (H, W) U[0, 1): silhouette dropout
+    drop_uniform: torch.Tensor  # (H, W) U[0, 1): random dropout
+    rgb_normal: torch.Tensor  # (H, W, 3) standard normal: shot noise
+    gain_uniform: torch.Tensor  # () U[0, 1): flicker
+
+
+def draw_noise(h: int, w: int, spec: "NoiseSpec", index: int, device) -> NoiseDraws:
+    """The draws of frame `index`, from a generator on `device` seeded from
+    `spec.seed` and the index: the same frame gets the same draws on the
+    same kind of device."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    # one 32-bit seed mixed from both (the CPU generator reads 32 bits)
+    gen.manual_seed(int(np.random.SeedSequence([spec.seed, index]).generate_state(1)[0]))
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    return NoiseDraws(normal(h, w), uniform(h, w), uniform(h, w), normal(h, w, 3),
+                      uniform())
+
+
+def apply_sensor_noise(depth_raw, rgb, draws: NoiseDraws, cam: CameraIntrinsics,
+                       spec: "NoiseSpec" = NoiseSpec(), flow_px=None, t_s=None):
+    """Corrupt a clean frame like a real structured-light sensor, with the
+    given draws, in the reference's order of operations.
+
+    depth_raw (H, W) in sensor units (any integer type), rgb (H, W, 3)
+    uint8; `flow_px` the frame's dominant image flow (u, v) in px a frame,
+    `t_s` its time in seconds (the exposure drift's phase). Returns depth as
+    int32 holding uint16 values and rgb as uint8; both casts clip as the
+    reference's do.
+    """
+    f32 = torch.float32
+    # metres by the float32 reciprocal of the scale, as the reference's
+    # compiled program computes it: the edge test below sits exactly on its
+    # threshold on quantized planes, so the last bit of z decides a dropout
+    z = depth_raw.to(f32) * np.float32(1.0 / cam.depth_scale)
+    if spec.motion_blur > 0.0 and flow_px is not None:
+        # 5-tap box blur along the flow: integer-shifted rolls, the shifts
+        # rounded half to even in float32 as the reference rounds them
+        flow = np.asarray(flow_px, np.float32)
+        acc = torch.zeros(rgb.shape, dtype=f32, device=rgb.device)
+        for frac in (-0.5, -0.25, 0.0, 0.25, 0.5):
+            off = np.float32(spec.motion_blur * frac) * flow
+            dx, dy = (int(v) for v in np.round(off))
+            acc = acc + torch.roll(rgb.to(f32), shifts=(dy, dx), dims=(0, 1))
+        rgb = (acc / 5.0).to(torch.uint8)
+
+    sigma = spec.depth_sigma_rel2 * z * z
+    z_noisy = z + sigma * draws.depth_normal
+    # silhouette dropout: a 4-neighbour differing by more than
+    # edge_rel_tol * max(z, 0.5)
+    edge = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
+    for dim, s in ((0, 1), (0, -1), (1, 1), (1, -1)):
+        edge = edge | (torch.abs(torch.roll(z, s, dims=dim) - z)
+                       > spec.edge_rel_tol * torch.clamp_min(z, 0.5))
+    drop = (edge & (draws.edge_uniform < spec.edge_dropout)) | (
+        draws.drop_uniform < spec.random_dropout)
+    z_noisy = torch.where(drop, 0.0, z_noisy)
+    depth_out = torch.clamp(z_noisy * cam.depth_scale, 0, 65535).to(torch.int32)
+
+    gain = 1.0 + spec.flicker * (2.0 * draws.gain_uniform - 1.0)
+    if spec.exposure_drift > 0.0 and t_s is not None:
+        t = torch.tensor(t_s, dtype=f32, device=z.device)
+        gain = gain * (1.0 + spec.exposure_drift * torch.sin(
+            2.0 * np.pi * t / spec.exposure_period_s))
+    rgb_f = rgb.to(f32) * gain + spec.rgb_sigma * draws.rgb_normal
+    rgb_out = torch.clamp(rgb_f, 0, 255).to(torch.uint8)
+    return depth_out, rgb_out
+
+
+def frame_flow(poses: np.ndarray, i: int, cam: CameraIntrinsics) -> tuple[float, float]:
+    """Dominant image flow (u, v) in px of frame i's motion, as the
+    reference's sequence computes it: rotational terms dominate handheld
+    flow, u ~ fx |w_y|, v ~ fy |w_x|, from the twist into frame i (frame 0
+    takes frame 1's)."""
+    j = max(i - 1, 0)
+    rel = np.linalg.inv(poses[j]) @ poses[min(j + 1, len(poses) - 1)]
+    xi = se3.log(torch.from_numpy(rel.astype(np.float32))).tolist()
+    return (float(np.float32(cam.fx * abs(xi[4]))), float(np.float32(cam.fy * abs(xi[3]))))
+
+
+def noisy_frame(depth_raw, rgb, i: int, poses: np.ndarray, cam: CameraIntrinsics,
+                spec: "NoiseSpec", fps: float = 30.0):
+    """Frame i of a sequence along `poses` through the sensor model, on the
+    frame's device: its draws, its flow and its time i / fps."""
+    draws = draw_noise(depth_raw.shape[0], depth_raw.shape[1], spec, i, depth_raw.device)
+    return apply_sensor_noise(depth_raw, rgb, draws, cam, spec,
+                              flow_px=frame_flow(poses, i, cam), t_s=i / fps)
+
+
 def orbit_trajectory(n_frames: int, spec: SceneSpec = SceneSpec(),
                      radius: float = 0.8, step_t: float = 0.012,
                      step_r: float = 0.01, seed: int = 3,
@@ -174,14 +304,15 @@ def orbit_trajectory(n_frames: int, spec: SceneSpec = SceneSpec(),
 class SyntheticSequence:
     """Iterable RGB-D sequence with ground truth, rendered on `device`: the
     CUDA device unless the caller asks for "cpu"; without a card the default
-    raises."""
+    raises. With `noise`, every frame goes through the sensor model."""
 
     def __init__(self, n_frames: int, cam: CameraIntrinsics,
                  spec: SceneSpec = SceneSpec(), fps: float = 30.0,
-                 device="cuda", **traj_kw):
+                 noise: NoiseSpec | None = None, device="cuda", **traj_kw):
         self.cam = cam
         self.spec = spec
         self.fps = fps
+        self.noise = noise
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -196,6 +327,9 @@ class SyntheticSequence:
     def frame(self, i: int):
         """(timestamp_s, depth_raw uint16 (H, W), rgb uint8 (H, W, 3))."""
         depth, rgb = render_frame(self.poses[i], self.cam, self.spec, self.device)
+        if self.noise is not None:
+            depth, rgb = noisy_frame(depth, rgb, i, self.poses, self.cam, self.noise,
+                                     self.fps)
         return (self.timestamps[i], depth.cpu().numpy().astype(np.uint16),
                 rgb.cpu().numpy())
 

@@ -5,7 +5,9 @@ together) and links them into one shared library with a plain C interface,
 under `build/kernels/` at the root of the checkout, named by a hash of the
 sources and flags: a changed source builds anew, an unchanged one loads the
 library already built. Nothing is built on import; the first kernel launch
-calls `load()`. Only sources in this package are compiled.
+calls `load()`, which is safe to call from several threads (the session's
+backend worker launches kernels too). Only sources in this package are
+compiled.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -68,9 +71,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"slam_kernels_{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process.
+    Threads that call it at once wait for one build."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         build(lib_path)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +44,9 @@ from slam_rgbd_tpu_torch.ops.workspace import workspace
 N_BITS = 256
 META = 8
 BIG = 1e9
+# the frontend and the session's backend thread both launch; a counter's
+# += is a read-modify-write
+_count_lock = threading.Lock()
 
 
 class Matches(NamedTuple):
@@ -220,7 +224,8 @@ def hamming_top2(signs1, valid1, signs2, valid2):
             best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(err, "hamming_top2 launch")
-    hamming_top2.launches += 1
+    with _count_lock:
+        hamming_top2.launches += 1
     return best, second, idx
 
 
@@ -262,7 +267,8 @@ def gated_match(signs1, q_meta, signs2, p_meta, px_radius: float = 6.0,
             d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), i2.data_ptr(), stream,
         )
     _build.check(err, "gated_match launch")
-    gated_match.launches += 1
+    with _count_lock:
+        gated_match.launches += 1
     return d1, i1, d2, i2
 
 

@@ -31,7 +31,6 @@ does.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -172,13 +171,10 @@ def _loop_close(m, e, n, Tw, ki: int, ci: int, cfg):
     only where the loop closed and the result is finite with |t(C)| < 2 m.
     Returns (m, e, n, Tw, closed () bool)."""
     ver = loop_mod.verify_loop(m, ki, ci)
-    Ti, Tj = m.kf_pose[ci], m.kf_pose[ki]
-    resid = se3.log(se3.inverse(ver.T_rel) @ se3.inverse(Ti) @ Tj)
-    consistent = (
-        torch.isfinite(resid).all()
-        & (torch.linalg.norm(resid[:3]) <= cfg.ba.loop_max_residual_t)
-        & (torch.linalg.norm(resid[3:]) <= math.radians(cfg.ba.loop_max_residual_deg))
-    )
+    Tj = m.kf_pose[ki]
+    consistent, _, _ = loop_mod.edge_consistency(
+        ver.T_rel, m.kf_pose[ci], Tj, cfg.ba.loop_max_residual_t,
+        cfg.ba.loop_max_residual_deg)
     closed = ver.ok & consistent
     # the pose graph is the expensive part and changes nothing for a loop
     # that did not verify: one flag read decides whether to run it
@@ -187,9 +183,7 @@ def _loop_close(m, e, n, Tw, ki: int, ci: int, cfg):
     e2, n2 = e.add(n, ci, ki, ver.T_rel, weight=5.0)
     pg = pg_mod.optimize_pose_graph(
         m.kf_pose, m.kf_valid, e2, iters=cfg.ba.pg_iters, damping=cfg.ba.pg_damping)
-    anchor = torch.clamp(m.pt_first_kf, 0, m.capacity_kf - 1).long()
-    delta = pg.poses[anchor] @ se3.inverse(m.kf_pose[anchor])  # (P, 4, 4)
-    pt_new = (delta[:, :3, :3] @ m.pt_xyz[..., None])[..., 0] + delta[:, :3, 3]
+    pt_new = pg_mod.ride_with_anchors(m, pg.poses)
     C = se3.normalize_rotation(pg.poses[ki] @ se3.inverse(Tj))
     use = (
         torch.isfinite(pg.poses).all() & torch.isfinite(C).all()
@@ -198,7 +192,7 @@ def _loop_close(m, e, n, Tw, ki: int, ci: int, cfg):
     m2 = dataclasses.replace(
         m,
         kf_pose=torch.where(use, pg.poses, m.kf_pose),
-        pt_xyz=torch.where(use & m.pt_valid[:, None], pt_new, m.pt_xyz),
+        pt_xyz=torch.where(use, pt_new, m.pt_xyz),
     )
     e_out = pg_mod.EdgeList(**{
         f.name: torch.where(use, getattr(e2, f.name), getattr(e, f.name))

@@ -1,19 +1,25 @@
-"""SLAM session: per-frame tracking, keyframe insertion, relocalization.
+"""SLAM session: per-frame tracking, keyframes, the backend, relocalization.
 
-Counterpart of `slam_rgbd_tpu/runtime/session.py` without its backend:
+Counterpart of `slam_rgbd_tpu/runtime/session.py` (without its `metrics`
+and `mesh` arguments, which belong to the runtime tools and the
+multi-device layer):
 
     frame -> pyramid -> ICP track (dense, every frame)
           -> keyframe decision -> [features -> map match -> insert
-          -> odometry edge -> cull]                      (on a keyframe)
+          -> odometry edge -> cull -> backend pass]      (on a keyframe)
           -> lost? -> [features -> map-wide match -> 3D-3D solve]
 
 Every keyframe runs the feature stage, associates its keypoints with the map
 (`ops.hamming.gated_match`), inserts itself and its new points, appends the
-odometry edge and culls under-observed points. A lost frame is relocalized
-against the whole map (`ops.hamming.hamming_top2`, both directions, then a
-robust 3D-3D solve), on the first lost frame and then every fourth. Local
-BA, loop closure and the pose graph solver come with the backend slice, so
-no keyframe pose is optimized yet.
+odometry edge and culls under-observed points. Then a backend pass
+(`backend.worker.backend_pass`): local BA, the loop search and verification
+(`ops.hamming.hamming_top2`), the pose graph, and after an accepted loop
+landmark fusion and a global BA. It runs inline, or with
+`async_backend=True` on the worker thread, which on a CUDA device has its
+own stream; its result merges at the start of a later frame
+(`_apply_backend`). A lost frame is relocalized against the whole map
+(`hamming_top2`, both directions, then a robust 3D-3D solve), on the first
+lost frame and then every fourth.
 
 Decision pipelining as in the reference: frame t queues its tracking and a
 (4,) control summary on the device and starts an asynchronous copy of the
@@ -21,20 +27,34 @@ summary to pinned host memory, marked by a CUDA event. The decisions of
 frame t are applied at the start of a later call, once the event has
 completed, or forced when `runtime.max_decision_lag` frames are in flight.
 Steady-state tracking never waits on the device, and neither does a keyframe
-insert: the host mirrors the keyframe count. A relocalization has the one
-blocking fetch of its (4,) stats.
+insert: the host mirrors the keyframe count. A relocalization has one
+blocking fetch (its (4,) stats), and so has the merge of a backend result
+(its guard's three scalars); an inline backend pass has those of
+`backend_pass`.
+
+Two faults of the reference arrive with the backend, and the port matches
+both: the fusion thresholds are hard-coded (`backend.worker`), and
+`_fuse_merge` clears every reference to a ghost duplicate instead of
+re-pointing it at the landmark it duplicated. `_fuse_merge` also counts the
+fused observations into `covis`, which retires the closed pair from
+`find_loop_candidate` (its `max_covis` gate): the single session closes a
+pair once, where the batch session, which has no fusion, closes it again
+after every cooldown.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
 
+from slam_rgbd_tpu_torch.backend import worker as bworker
 from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
 from slam_rgbd_tpu_torch.core import camera, se3
 from slam_rgbd_tpu_torch.core.config import (
@@ -161,6 +181,32 @@ def _reloc(m, signs, ok, pts, T_est, cfg: SLAMConfig, generator=None):
     return T_fixed, C, stats
 
 
+def _fuse_merge(m, snap: int, cand: int, fuse_row, ghost, delta, n_fused: int):
+    """Merge a loop's landmark fusion (`backend.worker._loop_fuse_program`)
+    into the live map: re-point the query keyframe's observation row, clear
+    every reference to a ghost duplicate (keyframes inserted after the
+    snapshot may have re-observed one: the flag pass covers their rows too),
+    update the observation counts, and count the fused observations into
+    the pair's covisibility, which retires the pair from
+    `find_loop_candidate`. Clearing rather than re-pointing the ghost
+    references is the reference's behaviour, kept as it is."""
+    P = m.capacity_pt
+    dev = m.device
+    pid = m.point_id.clone()
+    pid[snap] = fuse_row
+    flag = torch.cat([ghost, torch.zeros(1, dtype=torch.bool, device=dev)])
+    pid = pid.masked_fill(flag[torch.where(pid >= 0, pid, P).long()], -1)
+    pt_valid = m.pt_valid & ~ghost
+    nobs = torch.where(ghost, 0, torch.clamp_min(m.pt_nobs + delta, 0))
+    covis = m.covis.clone()
+    covis[snap, cand] += n_fused
+    covis[cand, snap] += n_fused
+    return dataclasses.replace(
+        m, point_id=pid, pt_valid=pt_valid, pt_nobs=nobs,
+        n_pt=pt_valid.sum().to(torch.int32), covis=covis,
+    )
+
+
 def _traj_correct(buf_T: torch.Tensor, start: int, C: torch.Tensor) -> None:
     """Left-multiply the rigid correction C onto ring entries [start:), in
     place (a relocalization rewrites the poses logged since the lost
@@ -176,14 +222,24 @@ class FrameStats:
     icp_rmse: float
     is_keyframe: bool
     tracking_ok: bool
+    ba_rmse_px: float = 0.0
+    loop_closed: bool = False
 
 
 @dataclass
 class SessionState:
+    """Host-visible session status."""
+
     frames: int = 0
     keyframes: int = 0
+    loops: int = 0
     lost: int = 0
     relocalized: int = 0
+    last_heartbeat: float = field(default_factory=time.monotonic)
+    running: bool = True
+    # frame count at which each loop-closure result merged into the live
+    # state (threaded: the call that polled it)
+    loop_merge_frames: list = field(default_factory=list)
 
 
 @dataclass
@@ -233,11 +289,17 @@ class SLAMSession:
     `keyframe_poses()` / `save_trajectory()` and `stats`. The session runs
     on the CUDA device unless the caller asks for `device="cpu"`; without a
     card the default raises. On CUDA the session turns TF32 off for matrix
-    products and cuDNN, since the 6x6 solves and pose products need full
-    float32.
+    products and cuDNN, since the 6x6 solves, pose products and the
+    backend's Schur and CG products need full float32.
+
+    `async_backend=False` runs the backend pass inline after each keyframe
+    insert (deterministic); True hands it to a `BackendWorker` thread and
+    merges its results at the start of later frames. Call `close()` (or
+    `sync_backend()`) to drain it.
     """
 
-    def __init__(self, config: SLAMConfig, device="cuda"):
+    def __init__(self, config: SLAMConfig, async_backend: bool = False,
+                 device="cuda"):
         self.cfg = config
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
@@ -275,16 +337,43 @@ class SLAMSession:
         self._traj_cap = 4096
         self._traj_T = torch.zeros((self._traj_cap, 4, 4), device=self.device)
         self._traj_kfT = torch.zeros((self._traj_cap, 4, 4), device=self.device)
+        # the backend: inline, or on the worker thread
+        self.async_backend = async_backend
+        self.worker = (bworker.BackendWorker(config, self.device)
+                       if async_backend else None)
+        self._last_loop_kf = -(10 ** 9)
+        # Loop-merge generation: bumped when a loop-closure result merges
+        # (the pose graph rewrites every keyframe). Jobs are stamped with it;
+        # a job or result of an older generation is dropped, since its
+        # verbatim pose merge would revert the loop correction.
+        self._loop_gen = 0
+        # the job of the newest insert, submitted at the start of the next
+        # frame: the insert and the backend pass land in different frame
+        # slots, so no frame waits behind a whole keyframe burst
+        self._deferred_job: Optional[bworker.BackendJob] = None
 
     # ------------------------------------------------------------- warmup
     def warmup(self):
-        """Run every device path of the session once, up front: the kernel
-        build, the tracking step, the keyframe insert with and without a
-        map, the relocalization solve (whose batched SVD loads a solver
-        library at first use) and the trajectory correction. Must run on a
-        fresh session; ends with `reset()`.
+        """Run every device path of the session once, up front: the backend
+        programs (a pass without and with BA, fusion and its merge, the
+        global BA, a loop-edge append), the kernel build, the tracking
+        step, the keyframe insert with and without a map, the
+        relocalization solve (whose batched SVD loads a solver library at
+        first use), the trajectory correction and a backend merge. Must run
+        on a fresh session; ends with `reset()`.
         """
-        cam = self.cfg.camera
+        cfg = self.cfg
+        cam = cfg.camera
+        eye = torch.eye(4, device=self.device)
+        for n_kf in (0, 3):
+            bworker.backend_pass(self.map, self.edges, self.n_edges, 0, cfg,
+                                 n_kf=n_kf, allow_loop=True)
+        pid, row, ghost, delta, _ = bworker._loop_fuse_program(self.map, 0, 0, eye)
+        _fuse_merge(self.map, 0, 0, row, ghost, delta, 0)
+        if cfg.ba.global_ba_iters > 0:
+            bworker._global_ba_program(self.map.kf_pose, self.map.pt_xyz, pid,
+                                       self.map, cfg)
+        self.edges.add(self.n_edges, 0, 1, eye, 5.0)
         # a textured sloped plane: valid geometry and FAST corners
         yy, xx = np.meshgrid(np.arange(cam.height), np.arange(cam.width), indexing="ij")
         depth = (1800.0 + 2.0 * xx + 1.5 * yy).astype(np.uint16)
@@ -296,11 +385,19 @@ class SLAMSession:
         self.process_frame(0.0, depth_t, rgb_t)  # bootstrap keyframe
         self.process_frame(1.0 / 30, depth_t, rgb_t)  # steady step
         self.flush_pipeline()
-        # keyframes against an existing map: association + merge tiers
-        self._insert_keyframe(2.0 / 30, depth_t, rgb_t, self.T_world)
-        self._insert_keyframe(3.0 / 30, depth_t, rgb_t, self.T_world)
+        # keyframes against an existing map: association + merge tiers; the
+        # third makes the backend pass run its BA
+        for ts in (2.0 / 30, 3.0 / 30):
+            self._keyframe(ts, depth_t, rgb_t, self.T_world)
+            self.sync_backend()
         self._relocalize(depth_t, rgb_t)
-        _traj_correct(self._traj_T, 0, torch.eye(4, device=self.device))
+        _traj_correct(self._traj_T, 0, eye)
+        # a merge whose snapshot poses are the live ones: C = I
+        self._apply_backend(bworker.BackendResult(
+            snap_kf_idx=self.last_kf_idx, kf_pose=self.map.kf_pose,
+            pt_xyz=self.map.pt_xyz,
+            pt_adjusted=torch.zeros_like(self.map.pt_valid),
+            generation=self._loop_gen))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.reset()
@@ -331,6 +428,16 @@ class SLAMSession:
         """Track one frame (depth in sensor units, RGB uint8), after
         resolving the decisions of earlier frames that have landed."""
         t0 = time.monotonic()
+        if self.worker is not None:
+            # merge finished backend work first: a snapshot then holds every
+            # earlier correction. `advance` promotes a waiting job after the
+            # merge, so the generation gate sees the merged state; then the
+            # deferred job of the last insert goes in.
+            self._apply_backend(self.worker.poll())
+            self.worker.advance(self._loop_gen, self._allow_loop)
+            if self._deferred_job is not None:
+                job, self._deferred_job = self._deferred_job, None
+                self.worker.submit(job)
         self._drain_pending(
             block=len(self._pending) >= self.cfg.runtime.max_decision_lag
         )
@@ -347,7 +454,7 @@ class SLAMSession:
             st = FrameStats(ts, 0.0, 1.0, 0.0, True, True)
             if self._n_kf_host == 0:
                 self._last_kf_frame_i = self._frame_i
-                self._insert_keyframe(ts, depth_t, rgb_t, self.T_world)
+                self._keyframe(ts, depth_t, rgb_t, self.T_world)
             self._log_pose(ts)
             self._frame_i += 1
             return self._finish(st, t0)
@@ -441,7 +548,9 @@ class SLAMSession:
         if e.st.tracking_ok and should > 0.5 and gap_ok and fresh:
             e.st.is_keyframe = True
             self._last_kf_frame_i = e.frame_i
-            self._insert_keyframe(e.ts, e.depth_raw, e.rgb, e.T)
+            kf_stats = self._keyframe(e.ts, e.depth_raw, e.rgb, e.T)
+            e.st.ba_rmse_px = kf_stats.get("ba_rmse", 0.0)
+            e.st.loop_closed = kf_stats.get("loop", False)
 
     def _should_insert(self, inlier_ratio: float) -> bool:
         ratio = torch.full((), inlier_ratio, device=self.device)
@@ -449,16 +558,23 @@ class SLAMSession:
             self.T_world, self.last_kf_T, ratio, self.cfg.keyframes))
 
     # ----------------------------------------------------------- keyframe
-    def _insert_keyframe(self, ts, depth_t, rgb_t, T_pose=None):
+    def _keyframe(self, ts, depth_t, rgb_t, T_pose) -> dict:
+        """A keyframe: the insert, then its backend pass. -> {"ba_rmse",
+        "loop"} of an inline pass, {} otherwise."""
+        kf_idx = self._insert_keyframe(ts, depth_t, rgb_t, T_pose)
+        return {} if kf_idx is None else self._backend(kf_idx)
+
+    def _insert_keyframe(self, ts, depth_t, rgb_t, T_pose=None) -> Optional[int]:
         """Insert a keyframe observed at pose `T_pose` (the frame's own pose
         estimate: under decision pipelining the live `T_world` has already
-        advanced past it)."""
+        advanced past it); the device stage only, no backend pass. Returns
+        the new keyframe's slot, or None at capacity."""
         if T_pose is None:
             T_pose = self.T_world
         M = self.cfg.keyframes.max_keyframes
         if self._n_kf_host >= M:
             log.warning("keyframe capacity %d reached; insert dropped", M)
-            return
+            return None
         kp, desc, pts, ok = self._features(depth_t, rgb_t)
         prev_kf_idx = self.last_kf_idx
         kf_idx = self._n_kf_host
@@ -473,6 +589,139 @@ class SLAMSession:
         # their (in-flight) keyframe decisions are stale from here on
         self._kf_ref_fresh_from = self._frame_i
         self.state.keyframes += 1
+        return kf_idx
+
+    # ------------------------------------------------------------ backend
+    def _backend(self, kf_idx: int) -> dict:
+        """The backend pass of the keyframe in slot `kf_idx`: inline, merged
+        at once, or as a job for the worker, deferred to the next frame
+        (its snapshot is a copy: the next insert writes the map in place)."""
+        job = bworker.BackendJob(
+            map=self.map, edges=self.edges, n_edges=self.n_edges, kf_idx=kf_idx,
+            n_kf=self._n_kf_host, allow_loop=self._allow_loop(kf_idx),
+            generation=self._loop_gen,
+        )
+        if self.worker is not None:
+            job.map, job.ready = bworker.snapshot(self.map)
+            if self._deferred_job is not None:  # superseded before submit
+                self.worker.skipped += 1
+            self._deferred_job = job
+            return {}
+        res = bworker.backend_pass(
+            job.map, job.edges, job.n_edges, job.kf_idx, self.cfg,
+            n_kf=job.n_kf, allow_loop=job.allow_loop,
+        )
+        # an inline result is never stale: it carries the current generation
+        res.generation = job.generation
+        self._apply_backend(res)
+        return {"ba_rmse": res.ba_rmse, "loop": res.loop_closed}
+
+    def _apply_backend(self, r: Optional[bworker.BackendResult]):
+        """Merge a finished backend pass into the live state.
+
+        Keyframe slots up to the snapshot take the result's poses verbatim;
+        everything anchored after it (the live pose, newer keyframes, points
+        spawned since, pending frame estimates) takes the rigid correction
+        C of the snapshot's newest keyframe. Points that existed at the
+        snapshot take the result's rows where the pass adjusted them.
+        """
+        if r is None:
+            return
+        if r.generation < self._loop_gen:
+            # computed from a snapshot older than a merged loop closure: its
+            # poses would revert the pose-graph correction
+            log.info("stale backend result (KF%d) dropped: snapshot predates loop "
+                     "merge (gen %d < %d)", r.snap_kf_idx, r.generation, self._loop_gen)
+            if self.worker is not None:
+                self.worker.skipped += 1
+            return
+        snap = r.snap_kf_idx
+        m = self.map
+        C = se3.normalize_rotation(r.kf_pose[snap] @ se3.inverse(m.kf_pose[snap]))
+        # bounded-merge guard: a result with non-finite poses or a rigid
+        # correction far beyond plausible drift is dropped whole; the next
+        # pass runs on an intact map
+        c_finite, c_move, poses_finite = torch.stack([
+            torch.isfinite(C).all().to(torch.float32), torch.linalg.norm(C[:3, 3]),
+            torch.isfinite(r.kf_pose).all().to(torch.float32),
+        ]).tolist()
+        if c_finite < 0.5 or c_move > 2.0 or poses_finite < 0.5:
+            log.error("backend result rejected: poses non-finite or correction "
+                      "implausible (|t|=%.2f m); dropping merge",
+                      c_move if c_finite > 0.5 else float("nan"))
+            return
+
+        slot = torch.arange(m.capacity_kf, device=self.device)
+        kf_pose = torch.where((slot <= snap)[:, None, None], r.kf_pose, C @ m.kf_pose)
+        existed = m.pt_first_kf <= snap
+        # finite poses with a non-finite point row must not poison the map
+        pt_finite = torch.isfinite(r.pt_xyz).all(dim=-1)
+        use_ba = r.pt_adjusted & m.pt_valid & existed & pt_finite
+        pt_xyz = torch.where(use_ba[:, None], r.pt_xyz, m.pt_xyz)
+        spawned_after = m.pt_valid & ~existed
+        pt_xyz = torch.where(spawned_after[:, None], pt_xyz @ C[:3, :3].T + C[:3, 3],
+                             pt_xyz)
+        self.map = dataclasses.replace(m, kf_pose=kf_pose, pt_xyz=pt_xyz)
+
+        if r.loop_edge is not None:
+            i, j, T_rel, weight = r.loop_edge
+            self.edges, self.n_edges = self.edges.add(self.n_edges, i, j, T_rel,
+                                                      weight=weight)
+            if r.fuse_row is not None:
+                self.map = _fuse_merge(self.map, snap, i, r.fuse_row, r.pt_invalidate,
+                                       r.pt_nobs_delta, r.n_fused)
+            self.state.loops += 1
+            self.state.loop_merge_frames.append(self.state.frames)
+            self._last_loop_kf = max(self._last_loop_kf, snap)
+            self._loop_gen += 1  # older snapshots can no longer merge
+        self.T_world = se3.normalize_rotation(C @ self.T_world)
+        # pending estimates inherited the pre-merge anchor; a keyframe
+        # inserted from one must land in the corrected frame
+        for e in self._pending:
+            e.T = C @ e.T
+        if self.last_kf_idx >= 0:
+            self.last_kf_T = self.map.kf_pose[self.last_kf_idx].clone()
+
+    def _allow_loop(self, kf_idx: int) -> bool:
+        """The loop-closure cooldown, against the current `_last_loop_kf`
+        (evaluated again when a waiting job is promoted)."""
+        return kf_idx - self._last_loop_kf >= self.cfg.ba.loop_cooldown_kf
+
+    def sync_backend(self, timeout: float = 30.0, final_pass: bool = False):
+        """Drain the pipeline and the backend worker, merging results.
+
+        `final_pass=True` also runs one inline backend pass over the drained
+        map: under replace-with-newest the last keyframes of a burst may
+        otherwise never get a BA / loop pass."""
+        self.flush_pipeline()
+        if self.worker is not None:
+            if self._deferred_job is not None:
+                job, self._deferred_job = self._deferred_job, None
+                self.worker.submit(job)
+            deadline = time.monotonic() + timeout
+            self._apply_backend(self.worker.poll())
+            self.worker.advance(self._loop_gen, self._allow_loop)
+            while self.worker.busy():
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    log.error("sync_backend drain timed out")
+                    break
+                self._apply_backend(self.worker.flush(remaining))
+                self.worker.advance(self._loop_gen, self._allow_loop)
+        if final_pass and self._n_kf_host >= 3:
+            res = bworker.backend_pass(
+                self.map, self.edges, self.n_edges, self.last_kf_idx, self.cfg,
+                n_kf=self._n_kf_host, allow_loop=self._allow_loop(self.last_kf_idx),
+            )
+            res.generation = self._loop_gen
+            self._apply_backend(res)
+
+    def close(self):
+        """Stop the backend worker (its in-flight job is drained first)."""
+        if self.worker is not None:
+            self.sync_backend()
+            self.worker.stop()
+            self.worker = None
 
     def flush_pipeline(self):
         """Finalize every pending frame's decisions and stats."""
@@ -482,6 +731,7 @@ class SLAMSession:
     def _finish(self, st: FrameStats, t0: float) -> FrameStats:
         st.track_ms = (time.monotonic() - t0) * 1e3
         self.state.frames += 1
+        self.state.last_heartbeat = time.monotonic()
         self.stats.append(st)
         return st
 
@@ -526,19 +776,21 @@ class SLAMSession:
         return T_fixed, C
 
     def reset(self):
-        """Full reset: a fresh session on the same config and device."""
-        self.__init__(self.cfg, self.device)
+        """Full reset: a fresh session on the same config, backend mode and
+        device (the worker, if any, is drained and stopped first)."""
+        was_async = self.async_backend
+        self.close()
+        self.__init__(self.cfg, async_backend=was_async, device=self.device)
 
     # ------------------------------------------------------------ outputs
     def poses(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps (n,), camera-to-world poses (n, 4, 4)).
 
-        Each frame pose is re-anchored to its reference keyframe's CURRENT
-        pose: T = T_kf_now @ (T_kf_then^-1 @ T_frame_then). Until a backend
-        moves keyframes the two keyframe poses are equal and the result is
-        the tracked pose up to float32 rounding.
+        The pipeline and the backend are drained first. Each frame pose is
+        re-anchored to its reference keyframe's CURRENT (optimized) pose:
+        T = T_kf_now @ (T_kf_then^-1 @ T_frame_then).
         """
-        self.flush_pipeline()
+        self.sync_backend()
         n = len(self._traj_ts)
         ts = np.asarray(self._traj_ts)
         if n == 0:
@@ -559,8 +811,8 @@ class SLAMSession:
 
     def keyframe_poses(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps (k,), camera-to-world poses (k, 4, 4)) of the
-        keyframes inserted so far."""
-        self.flush_pipeline()
+        keyframes inserted so far, after the backend has drained."""
+        self.sync_backend()
         n = self._n_kf_host
         return (self.map.kf_time[:n].cpu().numpy(),
                 self.map.kf_pose[:n].cpu().numpy())

@@ -645,3 +645,131 @@ def test_backend_sums_repeat_on_card(cuda_device):
     p2 = pose_graph.optimize_pose_graph(on_card[0], valid, edges, iters=4)
     assert torch.equal(p1.poses, p2.poses) and float(p1.rmse) < 1e-3
     np.testing.assert_allclose(p1.poses.cpu().numpy(), poses.numpy(), atol=2e-3)
+
+
+def _loop_map_on(device):
+    """The loop scene of `tests/test_torch_worker.py` built with the port's
+    own insert: candidate KF0, two far fillers, query KF3 revisiting KF0 with
+    duplicates of its landmarks, held at a pose 4 cm off its truth.
+    -> (map, edges, n_edges, config)."""
+    from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
+    from slam_rgbd_tpu_torch.core import se3
+    from slam_rgbd_tpu_torch.mapping import map as tmap
+
+    K = 64
+    cfg = SLAMConfig(camera=CAM, orb=ORBConfig(n_features=K, n_levels=2),
+                     keyframes=KeyframeConfig(max_keyframes=16, max_map_points=512),
+                     ba=BAConfig(window=4, iters=4, global_ba_iters=8,
+                                 global_ba_points=512, loop_min_interval=1))
+    rng = np.random.default_rng(1)
+    pts_w = np.stack([rng.uniform(-1.5, 1.5, K), rng.uniform(-1.0, 1.0, K),
+                      rng.uniform(2.0, 4.0, K)], axis=1).astype(np.float32)
+    signs = rng.choice(np.array([-1, 1], np.int8), size=(K, 256))
+
+    def exp(xi):
+        return se3.exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+    def observe(T):
+        T_cw = np.linalg.inv(T)
+        pc = (pts_w @ T_cw[:3, :3].T + T_cw[:3, 3]).astype(np.float32)
+        u = CAM.fx * pc[:, 0] / pc[:, 2] + CAM.cx
+        v = CAM.fy * pc[:, 1] / pc[:, 2] + CAM.cy
+        ok = (pc[:, 2] > 0.3) & (u >= 0) & (u < CAM.width) & (v >= 0) & (v < CAM.height)
+        return np.stack([u, v], 1).astype(np.float32), pc, ok
+
+    m = tmap.empty_map(cfg.keyframes, K, device)
+    none = torch.full((K,), -1, dtype=torch.int32, device=device)
+    T0 = np.eye(4, dtype=np.float32)
+    Tq = T0 @ exp([0.02, 0, 0.01, 0, 0.008, 0])
+    poses, views = [T0], [(T0, signs)]
+    T = T0
+    for _ in (1, 2):
+        T = T @ exp([0.5, 0, 0, 0, 0.6, 0])
+        poses.append(T)
+        views.append((T, rng.choice(np.array([-1, 1], np.int8), size=(K, 256))))
+    views.append((Tq, signs))
+    poses.append(Tq @ exp([0.03, -0.02, 0.015, 0.01, -0.012, 0.006]))
+    for i, ((T_obs, s), T_map) in enumerate(zip(views, poses)):
+        uv, pc, ok = observe(T_obs)
+        m = tmap.insert_keyframe(
+            m, torch.tensor(T_map, device=device), float(i), torch.tensor(uv, device=device),
+            torch.tensor(pc, device=device), torch.tensor(ok, device=device),
+            torch.tensor(s, device=device), none)
+    e = EdgeList.empty(64, device)
+    n = torch.zeros((), dtype=torch.int32, device=device)
+    for i in range(3):
+        e, n = e.add(n, i, i + 1,
+                     torch.tensor(np.linalg.inv(poses[i]) @ poses[i + 1], device=device))
+    return m, e, n, cfg
+
+
+@pytest.mark.cuda
+def test_threaded_pass_runs_on_its_stream_and_equals_inline_on_card(cuda_device, monkeypatch):
+    """The same closing job inline (the default stream) and on a
+    `BackendWorker`: the worker's `hamming_top2` launches (verification and
+    fusion, two each) are given the worker's own stream, and its result
+    equals the inline one: decisions exactly, poses and points to 1e-5."""
+    from slam_rgbd_tpu_torch.backend import worker as tworker
+
+    m, e, n, cfg = _loop_map_on(cuda_device)
+    streams = []
+    real = th._scratch
+
+    def recording(k1, k2, dev):  # the stream handle each launch is given
+        out = real(k1, k2, dev)
+        streams.append(out[2])
+        return out
+
+    monkeypatch.setattr(th, "_scratch", recording)
+    inline = tworker.backend_pass(m, e, n, 3, cfg, n_kf=4)
+    torch.cuda.synchronize()
+    main_stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert inline.loop_closed and streams == [main_stream] * 4
+    streams.clear()
+    w = tworker.BackendWorker(cfg, cuda_device)
+    try:
+        snap, ready = tworker.snapshot(m)
+        assert ready is not None
+        w.submit(tworker.BackendJob(map=snap, edges=e, n_edges=n, kf_idx=3, n_kf=4,
+                                    ready=ready))
+        r = w.flush(120)
+    finally:
+        w.stop()
+    assert r is not None and r.loop_closed
+    assert streams == [w._stream.cuda_stream] * 4 and w._stream.cuda_stream != main_stream
+    assert r.loop_edge[:2] == inline.loop_edge[:2] and r.n_fused == inline.n_fused > 20
+    assert torch.equal(r.pt_adjusted, inline.pt_adjusted)
+    assert torch.equal(r.fuse_row, inline.fuse_row)
+    torch.testing.assert_close(r.kf_pose, inline.kf_pose, atol=1e-5, rtol=0)
+    torch.testing.assert_close(r.pt_xyz, inline.pt_xyz, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tf32_stays_off_inside_a_worker_pass_on_card(cuda_device, monkeypatch):
+    """A threaded session on the card: every backend pass runs on the
+    worker's stream with TF32 off for matrix products and cuDNN."""
+    from slam_rgbd_tpu_torch.backend import worker as tworker
+
+    seen = []
+    real = tworker._backend_step
+
+    def recording(*args, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.cuda.current_stream(cuda_device).cuda_stream))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tworker, "_backend_step", recording)
+    cfg = SLAMConfig(camera=CAM, orb=ORBConfig(n_features=256),
+                     keyframes=KeyframeConfig(kf_min_trans=0.03, max_keyframes=8,
+                                              max_map_points=2048))
+    sess = SLAMSession(cfg, async_backend=True, device=cuda_device)
+    try:
+        for f in SyntheticSequence(12, CAM, sweep=True, device=cuda_device):
+            sess.process_frame(*f)
+        sess.sync_backend()
+        stream = sess.worker._stream.cuda_stream
+        assert sess.worker.completed >= 2 and np.isfinite(sess.poses()[1]).all()
+    finally:
+        sess.close()
+    assert seen and all(s == (False, False, stream) for s in seen)

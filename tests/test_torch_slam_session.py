@@ -188,9 +188,15 @@ def test_session_end_to_end_on_cpu(frames, cpu_session):
     assert th.gated_match.launches == 0 and th.hamming_top2.launches == 0  # CPU: plain
     ts, T = sess.poses()
     assert T.shape == (N, 4, 4) and np.isfinite(T).all()
-    # no backend moves a keyframe yet: re-anchoring returns the tracked poses
+    # the inline backend moved keyframes: each frame is its logged pose
+    # re-anchored on its reference keyframe's current pose
     raw = sess._traj_T[:N].numpy()
-    np.testing.assert_allclose(T, raw, atol=1e-5)
+    kf_then = sess._traj_kfT[:N].numpy()
+    kf_now = sess.map.kf_pose.numpy()[np.maximum(sess._frame_kf_idx, 0)]
+    want = np.where((np.asarray(sess._frame_kf_idx) >= 0)[:, None, None],
+                    kf_now @ np.linalg.inv(kf_then) @ raw, raw)
+    np.testing.assert_allclose(T, want, atol=1e-5)
+    assert sess.state.keyframes >= 3 and np.abs(kf_now - kf_then).max() > 1e-5
     assert ate_rmse(T, gt)[0] < 0.01
     kf_flags = [s.is_keyframe for s in sess.stats]
     assert sum(kf_flags) == sess.state.keyframes and kf_flags[0]
@@ -247,6 +253,7 @@ def test_relocalization_corrects_the_trajectory(frames, cpu_session):
         sess.process_frame(*f)
     sess.flush_pipeline()
     good = sess.T_world.clone()
+    before = sess._traj_T[5].clone()
     off = tse3.exp(torch.tensor([0.05, 0.0, 0.0, 0.0, 0.035, 0.0]))
     bad = good @ off
     sess.T_world = bad
@@ -260,7 +267,8 @@ def test_relocalization_corrects_the_trajectory(frames, cpu_session):
     assert sess.stats[6].tracking_ok
     assert np.linalg.norm((sess.T_world - good).numpy()[:3, 3]) < 0.02
     assert np.linalg.norm((sess._traj_T[6] - good).numpy()[:3, 3]) < 0.02
-    np.testing.assert_allclose(sess._traj_T[5].numpy(), sess.poses()[1][5], atol=1e-5)
+    # the frame before the lost one keeps its logged pose
+    np.testing.assert_allclose(sess._traj_T[5].numpy(), before.numpy(), atol=1e-5)
 
 
 def test_warmup_leaves_a_fresh_session():
