@@ -73,14 +73,30 @@ them). Phases, each fatal on failure:
                (`NoiseSpec(motion_blur=1.0, exposure_drift=0.08)`, applied
                on the card) and the threaded session: all poses finite,
                ATE within 5 cm; lost and relocalized frames.
- 10. loop leg - the JAX package's `bench_loop_leg` at full width: 120
+ 10. pipeline - the reference's `run` / `play` path from host frames: the
+               first 120 sweep frames brought to the host and recorded with
+               the native `.rgbd` codec (read back bit for bit); the host ms
+               of a frame's upload, plain and through the session's pinned
+               ring, idle and behind queued device work (the pinned upload
+               returns with the stream busy, both equal bit for bit); the
+               clip played through the threaded `PipelineRunner` (native
+               prefetcher paced at 30 fps, backend on its worker) with a live
+               `PointCloudServer` fetched during the run (processed + dropped
+               = 120, ATE within 5 cm paired by timestamp, metrics records,
+               no watchdog stall, points served); a scripted `ControlMenu`
+               (s, record, stop, q before the clip ends: shutdown in time, the
+               tee reads back); `checkpoint.save` at frame 60, `restore` into a
+               fresh session bit for bit, frames 60-119 on it; and
+               `python -m slam_rgbd_tpu_torch run tests/data/tum_golden --tum`
+               and `eval` as subprocesses on the card.
+ 11. loop leg - the JAX package's `bench_loop_leg` at full width: 120
                frames of the sweep under injected drift, the backend
                inline, loops off and on: no loop off, at least one on, ATE
                on below ATE off.
- 11. small batch - two different 160x120 sequences through
+ 12. small batch - two different 160x120 sequences through
                `BatchSession` on the card and on the CPU: poses, keyframes
                and maps agree.
-  12. batch  - `BatchSession(cfg, 4)` at full width over 120 frames of
+ 13. batch  - `BatchSession(cfg, 4)` at full width over 120 frames of
                640x480 under injected odometry drift (the JAX bench's loop
                leg): sequences 0 and 1 the out-and-back sweep, 2 and 3
                forward orbits. 22 `gn_reduce_batched` launches a tracked
@@ -96,6 +112,7 @@ The line before the last holds the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -124,6 +141,10 @@ LOOP_LEG_DRIFT = (0.006, 0.0, 0.003, 0.0, 0.003, 0.0)
 MATCHED_SHARE_MIN = 0.5  # of a later keyframe's valid keypoints, see main_phase
 LOOP_FRAMES = 120  # the loop leg's sweep (`bench_loop_leg`'s n_frames)
 SMALL_BACKEND_FRAMES = 100
+PIPE_FRAMES = 120  # the pipeline phase's clip: the first frames of the sweep
+PIPE_FPS = 30.0  # its playback pace, the sensor's rate
+UPLOAD_SPIN_MS = 5.0  # device work queued ahead of a timed upload
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # the JAX package's results on these legs, from its TPU bench
 # (`BENCH_r05.json`): accuracy only, printed beside the card's as the
 # reference's
@@ -1175,6 +1196,317 @@ def loop_leg_phase(cfg) -> dict:
     return launches
 
 
+def _upload_ms(frames, dev, spin_ms: float) -> dict:
+    """Host ms a frame (depth + colour) of the plain upload and of the pinned
+    ring, each behind `spin_ms` of queued device work (0: an idle stream),
+    medians over the frames; and whether a staged upload returned while the
+    stream was still busy."""
+    from slam_rgbd_tpu_torch.runtime.staging import PinnedStaging, upload_plain
+
+    staging = PinnedStaging(dev, n_slots=4)
+    stream = torch.cuda.current_stream(dev)
+    out, busy_after = {}, []
+    for name, up in (("plain", lambda x: upload_plain(x, dev)), ("pinned", staging.upload)):
+        times = []
+        for _, depth, rgb in frames:
+            torch.cuda.synchronize()
+            if spin_ms > 0:
+                torch.cuda._sleep(int(spin_ms * 1e-3 * 2.0e9))
+            t0 = time.perf_counter()
+            d, c = up(depth), up(rgb)
+            times.append(1e3 * (time.perf_counter() - t0))
+            if name == "pinned" and spin_ms > 0:
+                busy_after.append(not stream.query())
+            torch.cuda.synchronize()
+            same = torch.equal(d, upload_plain(depth, dev)) and torch.equal(
+                c, upload_plain(rgb, dev))
+            check(same, f"{name} upload differs from the plain upload")
+        out[name] = float(np.median(times[2:]))
+    out["returned_busy"] = all(busy_after)
+    return out
+
+
+def _timed_calls(sess):
+    """Wrap `sess.process_frame` so each call is bracketed by a pair of CUDA
+    events on the calling thread's stream. -> list of (start, end) pairs."""
+    pairs = []
+    real = sess.process_frame
+
+    def timed(ts, depth, rgb):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        st = real(ts, depth, rgb)
+        b.record()
+        pairs.append((a, b))
+        return st
+
+    sess.process_frame = timed
+    return pairs
+
+
+def _fetch(port: int, path: str) -> tuple[int, bytes]:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.status, r.read()
+
+
+def _scripted_menu(runner, lines):
+    """Menu input: each (frames, line) is given once the producer has read
+    that many frames of the clip (processed, dropped or still queued)."""
+    def read():
+        return runner.session.state.frames + runner.queue.dropped + len(runner.queue)
+
+    for at, line in lines:
+        deadline = time.monotonic() + 60.0
+        while read() < at and time.monotonic() < deadline:
+            time.sleep(0.01)
+        yield line + "\n"
+
+
+def pipeline_phase(cfg, run: dict) -> dict:
+    """The reference's `run` / `play` path from host frames: record a clip,
+    replay it through the threaded `PipelineRunner` with a live viewer, a
+    scripted control menu, checkpoint / resume, and the CLI in a
+    subprocess."""
+    phase("pipeline")
+    import io
+    import threading
+
+    from slam_rgbd_tpu_torch import SLAMSession
+    from slam_rgbd_tpu_torch.eval.trajectory import ate_by_timestamp, load_trajectory_tum
+    from slam_rgbd_tpu_torch.io import native
+    from slam_rgbd_tpu_torch.io import stream as st
+    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+    from slam_rgbd_tpu_torch.ops import hamming as th
+    from slam_rgbd_tpu_torch.runtime import checkpoint
+    from slam_rgbd_tpu_torch.runtime.runner import ControlMenu, PipelineRunner
+    from slam_rgbd_tpu_torch.viz.pointcloud import map_to_pointcloud
+    from slam_rgbd_tpu_torch.viz.server import PointCloudServer
+
+    dev = torch.device("cuda", 0)
+    cam = cfg.camera
+    gt = run["gt"][:PIPE_FRAMES]
+    # the sweep's frames brought to the host, as a camera or a file gives them
+    host = [(i / cam.fps, d.cpu().numpy().astype(np.uint16), c.cpu().numpy())
+            for i, (d, c) in enumerate(run["frames"][:PIPE_FRAMES])]
+    gt_ts = np.array([f[0] for f in host])
+    counters = (tg.gn_reduce, tg.gn_reduce_batched, th.gated_match, th.hamming_top2)
+    launches = {c.__name__: 0 for c in counters}
+
+    def count():
+        for c in counters:
+            launches[c.__name__] += c.launches
+            c.launches = 0
+
+    for c in counters:
+        c.launches = 0
+    up_idle = _upload_ms(host[:12], dev, 0.0)
+    up_busy = _upload_ms(host[:12], dev, UPLOAD_SPIN_MS)
+    print(f"upload of a host frame (depth + colour), host ms, median: idle stream plain "
+          f"{up_idle['plain']:.3f} / pinned {up_idle['pinned']:.3f}; behind "
+          f"{UPLOAD_SPIN_MS:.0f} ms of queued device work plain {up_busy['plain']:.3f} / "
+          f"pinned {up_busy['pinned']:.3f} (returned with the stream busy: "
+          f"{up_busy['returned_busy']}); both equal to the plain upload bit for bit")
+    check(up_busy["returned_busy"], "a pinned upload waited for the stream")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- record: the native codec, read back bit for bit
+        check(native.native_available(), "the native IO library did not build")
+        clip = os.path.join(tmp, "clip.rgbd")
+        rec = st.open_recorder(clip)
+        check(isinstance(rec, native.NativeStreamRecorder), f"recorder {type(rec)}")
+        t0 = time.perf_counter()
+        with rec:
+            for f in host:
+                rec.write(*f)
+        rec_s = time.perf_counter() - t0
+        for reader in (st.StreamReader(clip), st.open_reader(clip, prefetch=4)):
+            back = list(reader)
+            reader.close()
+            # timestamps are kept to the microsecond
+            check(len(back) == len(host) and all(
+                b[0] == int(a[0] * 1e6) / 1e6 and np.array_equal(a[1], b[1])
+                and np.array_equal(a[2], b[2]) for a, b in zip(host, back)),
+                f"{type(reader).__name__}: the clip does not read back bit for bit")
+        print(f"recorded {len(host)} frames {cam.width}x{cam.height} with the native codec "
+              f"in {rec_s:.2f} s ({os.path.getsize(clip) / 2**20:.1f} MiB); the Python "
+              f"reader and the native prefetcher read them back bit for bit")
+
+        # ---- play: the threaded runner, the native prefetcher paced at 30 fps,
+        # a live viewer on an ephemeral port
+        runner = PipelineRunner(cfg, st.paced(
+            st.open_reader(clip, prefetch=cfg.stream.prefetch), PIPE_FPS))
+        sess = runner.session
+        check(sess.device.type == "cuda", f"runner session on {sess.device}")
+        calls = _timed_calls(sess)
+        server = PointCloudServer(lambda: map_to_pointcloud(runner.session.map),
+                                  port=0).start()
+        result = {}
+        worker = threading.Thread(
+            target=lambda: result.setdefault("session", runner.run(threads=True)),
+            name="pipeline-run")
+        t0 = time.perf_counter()
+        worker.start()
+        fetched = {}
+        try:
+            deadline = time.monotonic() + 120.0
+            while (sess.state.keyframes < 2 or sess.state.frames < 30) and worker.is_alive() \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            check(sess.state.keyframes >= 1, "no keyframe during the run")
+            for path in ("/healthz", "/pointcloud", "/native/frame"):
+                fetched[path] = _fetch(server.port, path)
+            fetched_at = sess.state.frames
+            worker.join(timeout=300)
+        finally:
+            server.stop()
+        wall = time.perf_counter() - t0
+        check(not worker.is_alive(), "the runner did not finish")
+        sess.sync_backend(timeout=120.0, final_pass=True)
+        count()
+        ts, est = sess.poses()
+        check_no_errors("pipeline play")
+        processed, dropped = sess.state.frames, runner.queue.dropped
+        torch.cuda.synchronize()
+        ms = np.array([a.elapsed_time(b) for a, b in calls])
+        steady = ms[STEADY_FROM:]
+        ate = ate_by_timestamp(ts, est, gt_ts, gt)
+        kinds = {k: len(runner.metrics.by_kind(k)) for k in ("frame_window", "queue", "backend")}
+        status = {p: s for p, (s, _) in fetched.items()}
+        cloud = json.loads(fetched["/pointcloud"][1])
+        n_cloud = len(cloud["positions"]) // 3
+        overflowed = "never" if dropped == 0 else "at least once"
+        print(f"play (threaded runner, native prefetcher paced at {PIPE_FPS:.0f} fps, "
+              f"backend on its worker): processed {processed}, dropped {dropped} (the "
+              f"queue passed {cfg.stream.queue_capacity} frames {overflowed}), keyframes "
+              f"{sess.state.keyframes}, loops {sess.state.loops}, lost {sess.state.lost}, "
+              f"relocalized {sess.state.relocalized}; ATE {100 * ate:.3f} cm paired by "
+              f"timestamp (limit {ATE_LIMIT_M * 100:.0f} cm); watchdog stalls "
+              f"{runner.watchdog.stalls}; records {kinds}")
+        print(f"play: {processed / wall:.2f} frames/s processed over {wall:.2f} s wall "
+              f"(paced at {PIPE_FPS:.0f}); calls (frames {STEADY_FROM}-{len(ms) - 1}, CUDA "
+              f"events on the consumer thread): {len(steady) / (steady.sum() / 1e3):.2f} "
+              f"frames/s of call time, {_p(steady)}; launches {dict(launches)}")
+        print(f"viewer during the run (frame {fetched_at}): {status}, /pointcloud "
+              f"{n_cloud} points, /native/frame {len(fetched['/native/frame'][1])} bytes of PNG")
+        check(processed + dropped == len(host),
+              f"processed {processed} + dropped {dropped} != {len(host)}")
+        check(ate <= ATE_LIMIT_M, f"ATE {ate:.4f} m above {ATE_LIMIT_M} m")
+        check(kinds["frame_window"] >= 1 and kinds["queue"] >= 1,
+              f"metrics records {kinds}")
+        check(runner.watchdog.stalls == 0, f"{runner.watchdog.stalls} watchdog stalls")
+        check(all(s == 200 for s in status.values()), f"viewer answered {status}")
+        check(n_cloud > 0, "/pointcloud held no points after a keyframe")
+        check(fetched["/native/frame"][1][:8] == b"\x89PNG\r\n\x1a\n", "/native/frame is no PNG")
+        check(launches["gn_reduce"] == 12 * (processed - 1)
+              and launches["gn_reduce_batched"] == 10 * (processed - 1),
+              f"launches {launches} for {processed} frames")
+        check(launches["gated_match"] == sess.state.keyframes - 1,
+              f"{launches['gated_match']} gated_match launches")
+
+        # ---- menu: s, 1 <tee>, 2, q before the clip ends
+        tee = os.path.join(tmp, "tee.rgbd")
+        runner = PipelineRunner(cfg, st.paced(
+            st.open_reader(clip, prefetch=cfg.stream.prefetch), PIPE_FPS))
+        out = io.StringIO()
+        q_at = {}
+        script = [(5, "s"), (10, f"1 {tee}"), (40, "2"), (60, "q")]
+
+        def lines():
+            for line in _scripted_menu(runner, script):
+                if line.startswith("q"):
+                    q_at["t"] = time.perf_counter()
+                yield line
+
+        menu = ControlMenu(runner, infile=lines(), outfile=out)
+        menu.start()
+        runner.run(threads=True)
+        shut_s = time.perf_counter() - q_at.get("t", time.perf_counter())
+        menu._thread.join(timeout=10)
+        count()
+        check_no_errors("pipeline menu")
+        teed = list(st.StreamReader(tee))
+        # a frame's index from its timestamp (i / fps, kept to the microsecond)
+        tee_ok = all(np.array_equal(d, host[round(t * cam.fps)][1])
+                     and np.array_equal(c, host[round(t * cam.fps)][2]) for t, d, c in teed)
+        menu_frames = runner.session.state.frames
+        print(f"menu (s, 1 <tee>, 2, q): processed {menu_frames} of {len(host)} frames, "
+              f"shutdown {shut_s:.2f} s after q (limit {cfg.runtime.shutdown_timeout_s:.0f} s, "
+              f"forced {runner.shutdown.forced}), tee {len(teed)} frames equal to the clip's: "
+              f"{tee_ok}; status line: "
+              f"{[ln for ln in out.getvalue().splitlines() if ln.startswith('status')]}")
+        check("t" in q_at and shut_s <= cfg.runtime.shutdown_timeout_s
+              and not runner.shutdown.forced, f"shutdown took {shut_s:.2f} s")
+        check(menu_frames < len(host), "q did not stop the run before the clip ended")
+        check(len(teed) > 0 and tee_ok, f"tee: {len(teed)} frames, equal {tee_ok}")
+        check("status: frames=" in out.getvalue(), "no status line")
+
+        # ---- checkpoint: save an inline session at frame 60, restore, go on
+        half = len(host) // 2
+        sess = SLAMSession(cfg)
+        for f in host[:half]:
+            sess.process_frame(*f)
+        ck = os.path.join(tmp, "ck")
+        checkpoint.save(sess, ck)
+        saved_kf = sess.state.keyframes
+        restored = checkpoint.restore(SLAMSession(cfg), ck)
+        check(restored.device.type == "cuda", "restored session off the card")
+        same = {}
+        for f in dataclasses.fields(sess.map):
+            same[f"map.{f.name}"] = torch.equal(getattr(sess.map, f.name),
+                                                getattr(restored.map, f.name))
+        for f in dataclasses.fields(sess.edges):
+            same[f"edges.{f.name}"] = torch.equal(getattr(sess.edges, f.name),
+                                                  getattr(restored.edges, f.name))
+        for name in ("n_edges", "T_world", "motion"):
+            same[name] = torch.equal(getattr(sess, name), getattr(restored, name))
+        for i, (a, b) in enumerate(zip(sess._traj_arrays(), restored._traj_arrays())):
+            same[f"traj_{i}"] = a.dtype == b.dtype and np.array_equal(a, b)
+        differ = [k for k, v in same.items() if not v]
+        for f in host[half:]:
+            restored.process_frame(*f)
+        count()
+        ts2, est2 = restored.poses()
+        check_no_errors("pipeline checkpoint")
+        ate2 = ate_by_timestamp(ts2, est2, gt_ts, gt)
+        print(f"checkpoint at frame {half}: {len(same)} arrays restored, bit for bit "
+              f"{len(same) - len(differ)}; keyframes {saved_kf} saved -> "
+              f"{restored.state.keyframes} after frames {half}-{len(host) - 1}, ATE "
+              f"{100 * ate2:.3f} cm over all {len(ts2)} frames")
+        check(not differ, f"restored arrays differ: {differ}")
+        check(restored.state.keyframes > saved_kf
+              and int(restored.map.n_kf) == restored.state.keyframes,
+              "the keyframe count did not continue from the saved one")
+        check(len(ts2) == len(host) and ate2 <= ATE_LIMIT_M,
+              f"resumed run: {len(ts2)} poses, ATE {ate2:.4f} m")
+
+        # ---- the CLI in a subprocess on the card: run on the golden TUM
+        # directory, then eval its trajectory
+        traj = os.path.join(tmp, "traj.txt")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "slam_rgbd_tpu_torch", "run", "tests/data/tum_golden",
+             "--tum", "--traj", traj], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"CLI run failed ({cli.returncode}): {cli.stderr[-2000:]}")
+        ts3, est3 = load_trajectory_tum(traj)
+        ev = subprocess.run(
+            [sys.executable, "-m", "slam_rgbd_tpu_torch", "eval", traj,
+             "tests/data/tum_golden/groundtruth.txt"], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        check(ev.returncode == 0, f"CLI eval failed: {ev.stderr[-2000:]}")
+        ev_json = json.loads(ev.stdout.strip().splitlines()[-1])
+        print(f"CLI `run tests/data/tum_golden --tum --traj` in {cli_s:.1f} s: "
+              f"{[ln for ln in cli.stdout.splitlines() if ln.startswith(('frames=', 'ATE'))]}; "
+              f"`eval`: {ev_json}")
+        check(est3.shape == (3, 4, 4) and np.isfinite(est3).all(),
+              f"CLI trajectory {est3.shape}")
+        check(ev_json["frames"] == 3, f"eval {ev_json}")
+    return launches
+
+
 def reloc_phase(run: dict) -> dict:
     """Relocalize a sweep frame against the map the main phase built, from
     an estimate off by 5 cm / 2 deg (as `warmup` exercises it)."""
@@ -1570,6 +1902,7 @@ def main() -> int:
     lost = lost_phase(cfg, run)
     run["session"].close()
     degraded = degraded_phase(cfg, run)
+    pipe = pipeline_phase(cfg, run)
     main_launches, gated_launches = run["launches"], run["gated_launches"]
     stacked_launches, main_top2 = run["stacked_launches"], run["top2_launches"]
     del run  # the sweep's frames and map
@@ -1588,25 +1921,28 @@ def main() -> int:
     kernels = [
         dict(name="gn_reduce", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:413",
-             launches=main_launches + degraded["gn_reduce"] + leg["gn_reduce"],
+             launches=(main_launches + degraded["gn_reduce"] + pipe["gn_reduce"]
+                       + leg["gn_reduce"]),
              max_abs_err=gn["max_err"],
              **{k: full[k] for k in timing}, library_ms=None),
         dict(name="gn_reduce_batched", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:493",
              launches=(stacked_launches + degraded["gn_reduce_batched"]
-                       + leg["gn_reduce_batched"] + batch["batched"]),
+                       + pipe["gn_reduce_batched"] + leg["gn_reduce_batched"]
+                       + batch["batched"]),
              max_abs_err=gnb["max_err"],
              **{k: full_b[k] for k in timing}, library_ms=None),
         dict(name="gated_match", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:291",
-             launches=(gated_launches + degraded["gated_match"] + leg["gated_match"]
-                       + batch["gated"]),
+             launches=(gated_launches + degraded["gated_match"] + pipe["gated_match"]
+                       + leg["gated_match"] + batch["gated"]),
              max_abs_err=ham["gated_match"]["max_abs_err"],
              **{k: ham["gated_match"][k] for k in timing}, library_ms=None),
         dict(name="hamming_top2", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:119",
              launches=(main_top2 + reloc["launches"] + lost["launches"]
-                       + degraded["hamming_top2"] + leg["hamming_top2"]
+                       + degraded["hamming_top2"] + pipe["hamming_top2"]
+                       + leg["hamming_top2"]
                        + small_backend["top2"] + batch["top2"]),
              max_abs_err=ham["hamming_top2"]["max_abs_err"],
              **{k: ham["hamming_top2"][k] for k in timing}, library_ms=None),

@@ -119,3 +119,19 @@ def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
         rerrs.append(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)))
     return (float(np.sqrt(np.mean(np.square(terrs)))),
             float(np.sqrt(np.mean(np.square(rerrs)))))
+
+
+def associate_by_timestamp(ts_est: np.ndarray, ts_gt: np.ndarray) -> np.ndarray:
+    """For each estimate, the index of the ground-truth pose nearest in time
+    (the pairing of the reference's `eval` verb). A run whose queue dropped
+    frames has fewer estimates than frames, and estimate i is then not frame
+    i: pairing by position would compare each estimate after the first drop
+    with the wrong pose."""
+    ts_est, ts_gt = np.asarray(ts_est), np.asarray(ts_gt)
+    return np.argmin(np.abs(ts_gt[None, :] - ts_est[:, None]), axis=1)
+
+
+def ate_by_timestamp(ts_est, est_poses, ts_gt, gt_poses) -> float:
+    """ATE RMSE (metres) of estimates paired with ground truth by time."""
+    idx = associate_by_timestamp(ts_est, ts_gt)
+    return ate_rmse(est_poses, np.asarray(gt_poses)[idx])[0]

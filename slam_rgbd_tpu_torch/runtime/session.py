@@ -1,8 +1,7 @@
 """SLAM session: per-frame tracking, keyframes, the backend, relocalization.
 
-Counterpart of `slam_rgbd_tpu/runtime/session.py` (without its `metrics`
-and `mesh` arguments, which belong to the runtime tools and the
-multi-device layer):
+Counterpart of `slam_rgbd_tpu/runtime/session.py` (without its `mesh`
+argument, which belongs to the multi-device layer):
 
     frame -> pyramid -> ICP track (dense, every frame)
           -> keyframe decision -> [features -> map match -> insert
@@ -31,6 +30,14 @@ insert: the host mirrors the keyframe count. A relocalization has one
 blocking fetch (its (4,) stats), and so has the merge of a backend result
 (its guard's three scalars); an inline backend pass has those of
 `backend_pass`.
+
+Frames from the host (numpy arrays) go up through a ring of pinned buffers
+(`runtime.staging.PinnedStaging`) without waiting for the device; frames
+that are already tensors are used where they lie. With `metrics` (a
+`runtime.profiling.MetricsLog`), every `runtime.metrics_every_frames` frames
+the session logs a `frame_window` record (which reads the map's point count
+back from the device) and every merged backend result a `backend` record,
+with the reference's keys.
 
 Two faults of the reference arrive with the backend, and the port matches
 both: the fusion thresholds are hard-coded (`backend.worker`), and
@@ -67,6 +74,8 @@ from slam_rgbd_tpu_torch.features import orb as forb
 from slam_rgbd_tpu_torch.features.pose3d import solve_pose3d
 from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame
+from slam_rgbd_tpu_torch.runtime.profiling import StageTimer
+from slam_rgbd_tpu_torch.runtime.staging import PinnedStaging, upload_plain
 
 log = logging.getLogger("slam_rgbd_tpu_torch.session")
 
@@ -295,16 +304,27 @@ class SLAMSession:
     `async_backend=False` runs the backend pass inline after each keyframe
     insert (deterministic); True hands it to a `BackendWorker` thread and
     merges its results at the start of later frames. Call `close()` (or
-    `sync_backend()`) to drain it.
+    `sync_backend()`) to drain it. `metrics`: an optional
+    `runtime.profiling.MetricsLog` for the `frame_window` and `backend`
+    records.
     """
 
     def __init__(self, config: SLAMConfig, async_backend: bool = False,
-                 device="cuda"):
+                 device="cuda", metrics=None):
         self.cfg = config
         self.device = _resolve_device(device)
+        self.metrics = metrics
+        self.timer = StageTimer()
+        # host frames: the plain copy on the CPU; on a card a pinned ring
+        # with a slot a frame in flight. The host runs at most
+        # `max_decision_lag` frames ahead before a decision blocks, so a slot
+        # wait never blocks earlier than the decision pipeline would.
+        self._staging = None
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            self._staging = PinnedStaging(
+                self.device, n_slots=config.runtime.max_decision_lag + 1)
         self.state = SessionState()
         self.stats: list[FrameStats] = []
         self.map = smap.empty_map(config.keyframes, self._kp_capacity(), self.device)
@@ -359,7 +379,8 @@ class SLAMSession:
         global BA, a loop-edge append), the kernel build, the tracking
         step, the keyframe insert with and without a map, the
         relocalization solve (whose batched SVD loads a solver library at
-        first use), the trajectory correction and a backend merge. Must run
+        first use), the trajectory correction, a backend merge, and on a
+        card the pinned ring of host frames at the camera's shape. Must run
         on a fresh session; ends with `reset()`.
         """
         cfg = self.cfg
@@ -414,14 +435,13 @@ class SLAMSession:
 
     # ------------------------------------------------------------- inputs
     def _upload(self, x) -> torch.Tensor:
-        """A frame array onto the session's device. uint16 depth becomes
-        int32 on the host first: torch has few uint16 kernels."""
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        x = np.asarray(x)
-        if x.dtype == np.uint16:
-            x = x.astype(np.int32)
-        return torch.tensor(x, device=self.device)
+        """A frame array onto the session's device (uint16 depth as int32).
+        A tensor stays where it is if it is there already; a host array on a
+        card goes through the pinned ring and does not wait for the
+        stream."""
+        if isinstance(x, torch.Tensor) or self._staging is None:
+            return upload_plain(x, self.device)
+        return self._staging.upload(np.asarray(x))
 
     # ---------------------------------------------------------- main loop
     def process_frame(self, ts: float, depth_raw, rgb) -> FrameStats:
@@ -681,6 +701,11 @@ class SLAMSession:
             e.T = C @ e.T
         if self.last_kf_idx >= 0:
             self.last_kf_T = self.map.kf_pose[self.last_kf_idx].clone()
+        if self.metrics is not None:
+            self.metrics.log(
+                "backend", kf=snap, ba_rmse=round(r.ba_rmse, 3),
+                backend_ms=round(r.backend_ms, 2), loop=r.loop_closed,
+            )
 
     def _allow_loop(self, kf_idx: int) -> bool:
         """The loop-closure cooldown, against the current `_last_loop_kf`
@@ -730,9 +755,28 @@ class SLAMSession:
 
     def _finish(self, st: FrameStats, t0: float) -> FrameStats:
         st.track_ms = (time.monotonic() - t0) * 1e3
+        self.timer.add("frame", st.track_ms / 1e3)
         self.state.frames += 1
         self.state.last_heartbeat = time.monotonic()
         self.stats.append(st)
+        every = self.cfg.runtime.metrics_every_frames
+        if self.metrics is not None and every and self.state.frames % every == 0:
+            recent = self.stats[-every:]
+            mean_ms = sum(s.track_ms for s in recent) / len(recent)
+            # the newest frames' inlier fractions may still be in flight
+            # (placeholder -1): the mean is over the resolved ones
+            inl = [s.inlier_fraction for s in recent if s.inlier_fraction >= 0]
+            self.metrics.log(
+                "frame_window",
+                frames=self.state.frames,
+                fps=round(1e3 / max(mean_ms, 1e-6), 2),
+                mean_track_ms=round(mean_ms, 3),
+                inlier_fraction=round(sum(inl) / max(len(inl), 1), 4),
+                keyframes=self.state.keyframes,
+                map_points=self.map_point_count(),  # a device read-back
+                loops=self.state.loops,
+                lost=self.state.lost,
+            )
         return st
 
     def _grow_traj_ring(self):
@@ -776,13 +820,45 @@ class SLAMSession:
         return T_fixed, C
 
     def reset(self):
-        """Full reset: a fresh session on the same config, backend mode and
-        device (the worker, if any, is drained and stopped first)."""
-        was_async = self.async_backend
+        """Full reset: a fresh session on the same config, backend mode,
+        device and metrics sink (the worker, if any, is drained and stopped
+        first). The pinned upload ring is kept: it is allocated once a
+        session, and a slot's event still guards its last copy."""
+        was_async, staging = self.async_backend, self._staging
         self.close()
-        self.__init__(self.cfg, async_backend=was_async, device=self.device)
+        self.__init__(self.cfg, async_backend=was_async, device=self.device,
+                      metrics=self.metrics)
+        if staging is not None:
+            self._staging = staging
 
     # ------------------------------------------------------------ outputs
+    def _traj_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(timestamps, frame poses, reference keyframe slot a frame, that
+        keyframe's pose when the frame was logged): the raw trajectory log,
+        read back from the device ring."""
+        n = len(self._traj_ts)
+        return (
+            np.asarray(self._traj_ts),
+            self._traj_T[:n].cpu().numpy(),
+            np.asarray(self._frame_kf_idx, dtype=np.int32),
+            self._traj_kfT[:n].cpu().numpy(),
+        )
+
+    def _restore_traj(self, ts, T, kf_idx, kfT):
+        """Inverse of `_traj_arrays` (checkpoint restore)."""
+        n = len(ts)
+        cap = 4096
+        while cap < n:
+            cap *= 2
+        self._traj_cap = cap
+        self._traj_ts = [float(t) for t in ts]
+        self._frame_kf_idx = [int(i) for i in kf_idx]
+        self._traj_T = torch.zeros((cap, 4, 4), device=self.device)
+        self._traj_kfT = torch.zeros((cap, 4, 4), device=self.device)
+        self._traj_T[:n] = torch.as_tensor(np.asarray(T, np.float32), device=self.device)
+        self._traj_kfT[:n] = torch.as_tensor(np.asarray(kfT, np.float32),
+                                             device=self.device)
+
     def poses(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps (n,), camera-to-world poses (n, 4, 4)).
 
@@ -791,13 +867,10 @@ class SLAMSession:
         T = T_kf_now @ (T_kf_then^-1 @ T_frame_then).
         """
         self.sync_backend()
-        n = len(self._traj_ts)
-        ts = np.asarray(self._traj_ts)
+        ts, traj_T, kf_idx, kf_T_then = self._traj_arrays()
+        n = len(ts)
         if n == 0:
             return ts, np.zeros((0, 4, 4), np.float32)
-        traj_T = self._traj_T[:n].cpu().numpy()
-        kf_T_then = self._traj_kfT[:n].cpu().numpy()
-        kf_idx = np.asarray(self._frame_kf_idx, dtype=np.int32)
         # batched rigid inverse of the reference-keyframe poses
         R = kf_T_then[:, :3, :3]
         t = kf_T_then[:, :3, 3]

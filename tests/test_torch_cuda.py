@@ -773,3 +773,65 @@ def test_tf32_stays_off_inside_a_worker_pass_on_card(cuda_device, monkeypatch):
     finally:
         sess.close()
     assert seen and all(s == (False, False, stream) for s in seen)
+
+
+@pytest.mark.cuda
+def test_host_upload_does_not_wait_for_the_stream_on_card(cuda_device):
+    """A host frame goes up through the pinned ring: the call returns while a
+    spin kernel still holds the stream, and once the stream has run, the
+    result equals the plain upload bit for bit, through more frames than
+    the ring has slots (each slot reused behind its event)."""
+    from slam_rgbd_tpu_torch.runtime.staging import PinnedStaging, upload_plain
+
+    sess = SLAMSession(SLAMConfig(camera=CAM), device=cuda_device)
+    assert isinstance(sess._staging, PinnedStaging)
+    rng = np.random.default_rng(0)
+    frames = [(rng.integers(0, 65536, (120, 160), dtype=np.uint16),
+               rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+              for _ in range(2 * sess._staging.n_slots + 1)]
+    stream = torch.cuda.current_stream(cuda_device)
+    # the first frame of a shape allocates its ring of pinned buffers
+    outs = [(sess._upload(frames[0][0]), sess._upload(frames[0][1]))]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))  # ~0.1 s of device time
+    depth_t, rgb_t = sess._upload(frames[1][0]), sess._upload(frames[1][1])
+    still_busy = not stream.query()
+    torch.cuda.synchronize()
+    assert still_busy, "the upload waited for the stream"
+    assert depth_t.dtype == torch.int32 and rgb_t.dtype == torch.uint8
+    outs += [(depth_t, rgb_t)] + [(sess._upload(d), sess._upload(c)) for d, c in frames[2:]]
+    torch.cuda.synchronize()
+    for (d, c), (dt, ct) in zip(frames, outs):
+        assert torch.equal(dt, upload_plain(d, cuda_device))
+        assert torch.equal(ct, upload_plain(c, cuda_device))
+    # device tensors keep their path
+    assert sess._upload(depth_t) is depth_t
+
+
+@pytest.mark.cuda
+def test_threaded_runner_from_host_frames_on_card(cuda_device):
+    """`PipelineRunner` on the card, threaded, fed host frames: the session
+    built on this thread and driven from the consumer thread tracks them as
+    the same session driven inline does."""
+    from slam_rgbd_tpu_torch.runtime.runner import PipelineRunner
+
+    from slam_rgbd_tpu_torch.core.config import RuntimeConfig, StreamConfig
+
+    # room in the queue for every frame (nothing dropped), and each frame's
+    # decisions resolved at the next call (the same keyframes both ways)
+    cfg = SLAMConfig(camera=CAM, icp=ICPConfig(levels=2, iters=(4, 3), window_px=(4, 2)),
+                     orb=ORBConfig(n_features=256),
+                     keyframes=KeyframeConfig(max_keyframes=16, max_map_points=2048),
+                     stream=StreamConfig(queue_capacity=12, queue_drop_to=12),
+                     runtime=RuntimeConfig(max_decision_lag=1))
+    frames = list(SyntheticSequence(12, CAM, device=cuda_device))
+    runner = PipelineRunner(cfg, iter(frames), async_backend=False, device=cuda_device)
+    sess = runner.run(threads=True)
+    inline = SLAMSession(cfg, device=cuda_device)
+    for f in frames:
+        inline.process_frame(*f)
+    _, est = sess.poses()
+    _, want = inline.poses()
+    assert sess.state.frames == 12 and runner.queue.dropped == 0
+    assert runner.watchdog.stalls == 0
+    np.testing.assert_array_equal(est, want)
