@@ -105,6 +105,26 @@ them). Phases, each fatal on failure:
                loop verification, all poses finite, the sweep sequences
                close a loop each, and their ATE is below that of the same
                sweep with the loop search off.
+  14. parallel - the parallel layer (`slam_rgbd_tpu_torch/parallel/`) at full
+               width: this process as one NCCL rank (mesh (1, 1)) runs the
+               five sharded programs of `parallel.dist` (`sharded_local_ba`
+               on the main phase's newest BA window, `batch_track` on the
+               batch phase's first step of four sequences, K1b;
+               `sharded_map_association` at 1024 x 16384 on the kernels
+               phase's map, merge tier on and off, K3; `sharded_pose_graph`
+               on the loop leg's keyframes and edges; `sharded_hamming_match`
+               at 1024 x 16384, K2), each against the unsharded port (BA
+               poses 5e-5 / points 5e-4, pose graph 1e-5, the rest exact);
+               then two ranks share the card over gloo: the same programs
+               on a (1, 2) mesh (blocks of 8192 points, 512 query rows;
+               replicated outputs equal on both ranks), and
+               `BatchSession(cfg, 4, mesh=)` on a (2, 1) mesh over the batch
+               phase's first 30 frames, whose poses, keyframes, loops, lost
+               frames and map points equal an unsharded `BatchSession` on
+               the same frames; the ranks' K1b / K2 / K3 launches join the
+               kernel table. Then `scaling.batch_scaling` at B = 1 / 2 / 4 /
+               8 and `python -m slam_rgbd_tpu_torch benchmark --scaling` as
+               a subprocess (the report names the card, one device).
 
 The line before the last holds the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without it.
@@ -134,6 +154,9 @@ LOST_FRAMES = 12  # the lost phase: a short run with one damaged frame
 LOST_AT = 6
 BATCH_B = 4
 BATCH_FRAMES = 120
+PAR_FRAMES = 30  # the sharded batch session's frames: the batch phase's first
+PAR_RANKS = 2  # ranks that share the card in the parallel phase (gloo)
+SCALING_ITERS = 50  # timed steps a batch size in the parallel phase's batch_scaling
 KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
 # the loop leg of the JAX package's bench: a constant twist composed onto
 # every tracked relative pose, denser keyframes, a shorter loop interval
@@ -736,6 +759,10 @@ def hamming_kernel_phase(cfg) -> dict:
     check(int(mt.valid.sum()) > 50, "too few mutual matches for a relocalization")
     err = max(r["max_abs_err"] for r in t_rows)
     out["hamming_top2"] = dict(t_rows[0], max_abs_err=err, rows=t_rows)
+    # the parallel phase's map association and matching run on this map and
+    # this query
+    out["inputs"] = {"map": m, "signs": desc.signs, "ok": ok, "uv": kp.uv,
+                     "z": pts[:, 2].contiguous(), "pts": pts, "T": T}
     return out
 
 
@@ -1178,6 +1205,10 @@ def loop_leg_phase(cfg) -> dict:
             launches[c.__name__] += c.launches
         ate, _, _ = ate_rmse(est, gt)
         st = sess.state
+        if on:  # the parallel phase's pose graph: this session's keyframes and edges
+            launches["graph"] = {"poses": sess.map.kf_pose, "node_valid": sess.map.kf_valid,
+                                 **{f: getattr(sess.edges, f)
+                                    for f in ("i", "j", "T_meas", "weight", "valid")}}
         # inline, a loop merges in the call that closed it (state.frames
         # counts the calls before it)
         merge_ms = [round(float(ms[i]), 1) for i in st.loop_merge_frames]
@@ -1878,7 +1909,379 @@ def batch_phase(cfg, with_profile: bool = False) -> dict:
     if with_profile:
         for n_seq in (BATCH_B, 1):
             _profile_tracked_steps(leg, frames, n_seq)
-    return {"batched": batched, "gated": gated, "top2": top2}
+    return {"batched": batched, "gated": gated, "top2": top2, "frames": frames[:PAR_FRAMES],
+            "leg": leg, "gts": [g[:PAR_FRAMES] for g in gts],
+            "steps_s": steps_s, "tracked_p50": float(np.percentile(tracked, 50))}
+
+
+# ---- parallel: the mesh, the sharded programs, the sharded batch session ------
+PAR_EDGE_FIELDS = ("i", "j", "T_meas", "weight", "valid")
+
+
+def _ba_window(m, cfg) -> dict:
+    """The newest BA window of map `m` as the backend's windowed solve hands
+    it to `local_ba`: 2 x window keyframes (the older half fixed), their
+    observation columns, and the points compacted to the window's budget."""
+    from slam_rgbd_tpu_torch.backend import ba as ba_mod
+    from slam_rgbd_tpu_torch.mapping import map as smap
+
+    w = cfg.ba.window
+    idx, valid = smap.local_window(m, 2 * w)
+    idx = idx.long()
+    uv, z = m.kp_uv[idx].contiguous(), m.kp_pts[idx][..., 2].contiguous()
+    ok = m.kp_ok[idx] & valid[:, None]
+    _, pid, ok_c, pts, _ = ba_mod._win_compact(valid, m.pt_xyz, uv, z, m.point_id[idx],
+                                              ok, cfg.camera, cfg.ba)
+    return {"ba_poses": m.kf_pose[idx].clone(), "ba_valid": valid, "ba_pts": pts,
+            "ba_uv": uv, "ba_z": z, "ba_pid": pid, "ba_ok": ok_c,
+            "ba_free": torch.arange(2 * w, device=m.device) >= w}
+
+
+def _par_inputs(ham_inputs: dict, ba_window: dict, graph: dict, frames) -> dict:
+    """The parallel phase's inputs, one flat dict of tensors on the card: the
+    kernels phase's map (16384 slots) and query (1024 keypoints), the main
+    phase's BA window, the loop leg's keyframes and edge list, and the first
+    two steps of the batch phase's four sequences."""
+    m = ham_inputs["map"]
+    x = {"pt_xyz": m.pt_xyz, "pt_signs": m.pt_signs, "pt_valid": m.pt_valid,
+         **{f"q_{k}": ham_inputs[k] for k in ("signs", "ok", "uv", "z", "pts", "T")},
+         **ba_window,
+         "pg_poses": graph["poses"], "pg_node_valid": graph["node_valid"],
+         **{f"pg_{f}": graph[f] for f in PAR_EDGE_FIELDS},
+         "tk_depth": torch.stack([frames[0][0], frames[1][0]]),
+         "tk_rgb": torch.stack([frames[0][1], frames[1][1]])}
+    return {k: v.contiguous() for k, v in x.items()}
+
+
+def _par_track_pair(x, cfg):
+    """(src, tgt) pyramids of the batch phase's first tracked step, B = 4."""
+    from slam_rgbd_tpu_torch.core import camera
+
+    pyr = lambda i: camera.build_frame_pyramid(x["tk_depth"][i], cfg.camera,
+                                               levels=cfg.icp.levels, rgb=x["tk_rgb"][i])
+    return pyr(1), pyr(0)
+
+
+def _par_programs(mesh, x: dict, cfg) -> dict:
+    """The five programs of `parallel.dist` on this rank's blocks of the
+    inputs (observation columns, map points, edge slots and query rows over
+    `model`; sequences over `data`) -> their outputs as numpy arrays."""
+    from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
+    from slam_rgbd_tpu_torch.parallel import dist as pdist
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    sh = lambda name, dim=0: pmesh.shard(x[name], mesh, "model", dim)
+    cam = cfg.camera
+    out = {}
+    res = pdist.sharded_local_ba(
+        mesh, x["ba_poses"], x["ba_valid"], x["ba_pts"],
+        *(sh(f"ba_{k}", dim=1) for k in ("uv", "z", "pid", "ok")), cam, cfg.ba,
+        free_mask=x["ba_free"])
+    out["ba_pose"], out["ba_pts"], out["ba_n"] = res.kf_pose, res.pt_xyz, res.n_obs
+    src, tgt = (tuple({k: pmesh.shard(v, mesh, "data") for k, v in lvl.items()} for lvl in p)
+                for p in _par_track_pair(x, cfg))
+    T0 = pmesh.shard(torch.eye(4, device=x["tk_depth"].device).repeat(BATCH_B, 1, 1),
+                     mesh, "data")
+    for k, v in zip(("T", "inl", "rmse", "vf"), pdist.batch_track(mesh, src, tgt, T0, cam,
+                                                                  cfg.icp)):
+        out[f"tk_{k}"] = v
+    for merge in (True, False):
+        out[f"assoc_{merge}"] = pdist.sharded_map_association(
+            mesh, x["q_signs"], x["q_ok"], x["q_uv"], x["q_z"], x["q_T"], sh("pt_xyz"),
+            sh("pt_signs"), sh("pt_valid"), cam, max_distance=float(cfg.orb.match_threshold),
+            kp_pts=x["q_pts"] if merge else None, merge_radius=cfg.keyframes.merge_radius)
+    edges = EdgeList(**{f: x[f"pg_{f}"] for f in PAR_EDGE_FIELDS})
+    pg = pdist.sharded_pose_graph(mesh, x["pg_poses"], x["pg_node_valid"],
+                                  pdist.edge_block(edges, mesh), iters=cfg.ba.pg_iters,
+                                  damping=cfg.ba.pg_damping)
+    out["pg_poses"], out["pg_n"] = pg.poses, pg.n_edges
+    out["hm_idx"], out["hm_best"], out["hm_ok"] = pdist.sharded_hamming_match(
+        mesh, sh("q_signs"), sh("q_ok"), x["pt_signs"], x["pt_valid"],
+        max_distance=float(cfg.orb.match_threshold))
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _par_unsharded(x: dict, m, cfg) -> dict:
+    """What `_par_programs` computes, through the port's unsharded functions
+    on the whole arrays (one card, no process group)."""
+    from slam_rgbd_tpu_torch.backend import ba as ba_mod
+    from slam_rgbd_tpu_torch.backend import pose_graph as pg_mod
+    from slam_rgbd_tpu_torch.mapping import map as smap
+    from slam_rgbd_tpu_torch.odometry.icp import icp_align_batched
+    from slam_rgbd_tpu_torch.ops import hamming as th
+
+    cam = cfg.camera
+    out = {}
+    res = ba_mod.local_ba(x["ba_poses"], x["ba_valid"], x["ba_pts"], x["ba_uv"], x["ba_z"],
+                          x["ba_pid"], x["ba_ok"], cam, cfg.ba, free_mask=x["ba_free"])
+    out["ba_pose"], out["ba_pts"], out["ba_n"] = res.kf_pose, res.pt_xyz, res.n_obs
+    src, tgt = _par_track_pair(x, cfg)
+    T0 = torch.eye(4, device=x["tk_depth"].device).repeat(BATCH_B, 1, 1)
+    r = icp_align_batched(src, tgt, T0, cam, cfg.icp)
+    out["tk_T"], out["tk_inl"], out["tk_rmse"], out["tk_vf"] = (
+        r.T, r.inliers, r.rmse, r.valid_fraction)
+    for merge in (True, False):
+        out[f"assoc_{merge}"] = smap.match_against_map(
+            m, x["q_signs"], x["q_ok"], x["q_uv"], x["q_z"], x["q_T"], cam=cam,
+            max_distance=float(cfg.orb.match_threshold),
+            kp_pts=x["q_pts"] if merge else None, merge_radius=cfg.keyframes.merge_radius)
+    edges = pg_mod.EdgeList(**{f: x[f"pg_{f}"] for f in PAR_EDGE_FIELDS})
+    pg = pg_mod.optimize_pose_graph(x["pg_poses"], x["pg_node_valid"], edges,
+                                    iters=cfg.ba.pg_iters, damping=cfg.ba.pg_damping)
+    out["pg_poses"], out["pg_n"] = pg.poses, pg.n_edges
+    best, second, idx = th.hamming_top2(x["q_signs"], x["q_ok"], x["pt_signs"], x["pt_valid"])
+    out["hm_idx"], out["hm_best"] = idx, best
+    out["hm_ok"] = (best < float(cfg.orb.match_threshold)) & (best < 0.9 * second) & x["q_ok"]
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _par_check(label: str, got: dict, want: dict, rows: slice) -> tuple[float, float]:
+    """One run of the programs against the unsharded port: BA poses 5e-5,
+    points 5e-4, pose-graph poses 1e-5 (the sums run in another order; the
+    tolerances of tests/test_parallel.py), every count equal, everything
+    else exact. `rows`: the query rows the run's matching held. -> (largest
+    BA pose difference, largest pose-graph difference)."""
+    ba = float(np.abs(got["ba_pose"] - want["ba_pose"]).max())
+    pts = float(np.abs(got["ba_pts"] - want["ba_pts"]).max())
+    pg = float(np.abs(got["pg_poses"] - want["pg_poses"]).max())
+    check(ba <= 5e-5 and pts <= 5e-4, f"{label}: BA off by {ba:.2e} / {pts:.2e}")
+    check(pg <= 1e-5, f"{label}: pose graph off by {pg:.2e}")
+    for k in ("ba_n", "pg_n", "tk_T", "tk_inl", "tk_rmse", "tk_vf", "assoc_True", "assoc_False"):
+        check(np.array_equal(got[k], want[k]), f"{label}: {k} differs from the unsharded port")
+    for k in ("hm_idx", "hm_best", "hm_ok"):
+        check(np.array_equal(got[k], want[k][rows]), f"{label}: {k} differs")
+    print(f"{label}: BA poses within {ba:.2e}, points within {pts:.2e} (n_obs "
+          f"{int(got['ba_n'])}), pose graph within {pg:.2e} ({int(got['pg_n'])} edges); "
+          f"batch_track, map association (merge tier on, off: "
+          f"{int((got['assoc_True'] >= 0).sum())}, {int((got['assoc_False'] >= 0).sum())} "
+          f"matched) and the Hamming match ({int(got['hm_ok'].sum())} of "
+          f"{len(got['hm_ok'])} rows) exactly equal to the unsharded port")
+    return ba, pg
+
+
+def _par_counters():
+    from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+    from slam_rgbd_tpu_torch.ops import hamming as th
+
+    return {"gn_reduce_batched": tg.gn_reduce_batched, "gn_reduce": tg.gn_reduce,
+            "gated_match": th.gated_match, "hamming_top2": th.hamming_top2}
+
+
+def _parallel_rank(rank: int, world: int, path: str, cfg, leg, gts) -> dict:
+    """One of the ranks sharing the card over gloo: the five programs on a
+    (1, world) mesh, then `BatchSession(leg, 4, mesh=)` on a (world, 1) mesh
+    over the batch phase's first frames (rendered here). Returns the
+    programs' outputs, the session's, a checksum of its frames, its timings
+    and its kernel launches (counted from 0 in this process)."""
+    from slam_rgbd_tpu_torch import BatchSession
+    from slam_rgbd_tpu_torch.core.config import MeshConfig
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.load(path, map_location=dev)
+    counters = _par_counters()
+    for c in counters.values():
+        c.launches = 0
+    mesh = pmesh.make_mesh(MeshConfig(data=1, model=world), "cuda")
+    t0 = time.perf_counter()
+    out = {"programs": _par_programs(mesh, x, cfg)}
+    out["programs_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["program_launches"] = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    _par_programs(mesh, x, cfg)  # once more, warm: its launches are not counted
+    out["programs_ms_again"] = 1e3 * (time.perf_counter() - t0)
+    for c in counters.values():
+        c.launches = 0
+    mesh = pmesh.make_mesh(MeshConfig(data=world, model=1), "cuda")
+    frames = _batch_frames(gts, leg.camera, dev)
+    out["frames_sum"] = [int(sum(f[c].sum(dtype=torch.int64) for f in frames))
+                         for c in (0, 1)]
+    bs = BatchSession(leg, BATCH_B, mesh=mesh)
+    check(bs.n_local == BATCH_B // world, f"{bs.n_local} sequences on rank {rank}")
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(frames) + 1)]
+    inserted = []
+    marks[0].record()
+    for i, (depth, rgb) in enumerate(frames):
+        before = int(bs._n_kf.sum())  # this rank's sequences only: no collective
+        bs.process_frames(i / leg.camera.fps, depth, rgb)
+        marks[i + 1].record()
+        inserted.append(int(bs._n_kf.sum()) > before)
+    torch.cuda.synchronize()
+    out["step_ms"] = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(frames))]
+    out["inserted"] = inserted
+    out["session_launches"] = {k: c.launches for k, c in counters.items()}
+    out["poses"] = bs.poses()[1]
+    out["kf"], out["loops"] = bs.keyframe_counts, bs.state.loops
+    out["lost"], out["pts"] = bs.state.lost, bs.map_point_counts()
+    return out
+
+
+def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
+                   batch: dict) -> dict:
+    """The parallel layer on the card: the five sharded programs on one NCCL
+    rank (mesh (1, 1)) and on two gloo ranks sharing the card (mesh (1, 2)),
+    each against the unsharded port; `BatchSession(cfg, 4, mesh=)` on the
+    two ranks (mesh (2, 1)) against the unsharded session on the same
+    frames; `scaling.batch_scaling`; and `benchmark --scaling` as a
+    subprocess."""
+    phase("parallel")
+    import torch.distributed as tdist
+
+    from slam_rgbd_tpu_torch.core.config import MeshConfig
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+    from slam_rgbd_tpu_torch.parallel import scaling
+
+    t_phase = time.perf_counter()
+    leg, frames = batch["leg"], batch["frames"]
+    x = _par_inputs(ham["inputs"], ba_window, leg_graph, frames)
+    counters = _par_counters()
+    launches = dict.fromkeys(counters, 0)
+    _par_unsharded(x, ham["inputs"]["map"], cfg)  # warm-up, outside the timings
+
+    # ---- one rank over NCCL, mesh (1, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.initialize_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                                     device="cuda")
+        try:
+            check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
+            mesh = pmesh.make_mesh(MeshConfig(), "cuda")
+            check(tuple(mesh.shape) == (1, 1), f"mesh {tuple(mesh.shape)}")
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            one = _par_programs(mesh, x, cfg)
+            one_ms = 1e3 * (time.perf_counter() - t0)
+            for k, c in counters.items():
+                launches[k] += c.launches
+            nccl_launches = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            _par_programs(mesh, x, cfg)  # once more, warm: its launches are not counted
+            again_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            tdist.destroy_process_group()
+    t0 = time.perf_counter()
+    want = _par_unsharded(x, ham["inputs"]["map"], cfg)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    k1 = x["q_signs"].shape[0]
+    _par_check(f"mesh (1, 1), NCCL", one, want, slice(0, k1))
+    print(f"  the five programs on the mesh {one_ms:.1f} ms the first time (NCCL's set-up "
+          f"at the first collective included), {again_ms:.1f} ms the second; unsharded "
+          f"{plain_ms:.1f} ms (host clock, synchronised, warm; {card}); kernel launches "
+          f"{nccl_launches}")
+    check(nccl_launches == {"gn_reduce_batched": 22, "gn_reduce": 0, "gated_match": 2,
+                            "hamming_top2": 1}, f"launches {nccl_launches}")
+
+    # ---- two ranks sharing the card over gloo
+    ref_bs, ref_ms, ref_ins = _batch_run(leg, frames, BATCH_B)
+    ref_poses = ref_bs.poses()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({k: v.cpu() for k, v in x.items()}, path)
+        t0 = time.perf_counter()
+        ranks = pmesh.spawn(_parallel_rank, PAR_RANKS, args=(path, cfg, leg, batch["gts"]),
+                            backend="gloo", device="cuda")
+        ranks_s = time.perf_counter() - t0
+    block = k1 // PAR_RANKS
+    for r, res in enumerate(ranks):
+        _par_check(f"mesh (1, 2), gloo, rank {r}", res["programs"], want,
+                   slice(r * block, (r + 1) * block))
+        for k in ("ba_pose", "ba_pts", "ba_n", "pg_poses", "pg_n", "tk_T", "tk_inl",
+                  "assoc_True", "assoc_False"):
+            check(np.array_equal(res["programs"][k], ranks[0]["programs"][k]),
+                  f"rank {r}: replicated output {k} differs from rank 0's")
+        check(res["program_launches"] == nccl_launches,
+              f"rank {r} program launches {res['program_launches']}")
+        want_sum = [int(sum(f[c].sum(dtype=torch.int64) for f in frames)) for c in (0, 1)]
+        check(res["frames_sum"] == want_sum, f"rank {r} rendered other frames")
+        check(np.array_equal(res["poses"], ref_poses),
+              f"rank {r}: the sharded session's poses differ from the unsharded session's "
+              f"by {np.abs(res['poses'] - ref_poses).max():.2e}")
+        for k, want_k in (("kf", ref_bs.keyframe_counts), ("loops", ref_bs.state.loops),
+                          ("lost", ref_bs.state.lost), ("pts", ref_bs.map_point_counts())):
+            check(np.array_equal(res[k], want_k), f"rank {r}: {k} {res[k]} != {want_k}")
+        for k in counters:
+            launches[k] += res["program_launches"][k] + res["session_launches"][k]
+    steady = slice(STEADY_FROM, None)
+    rank_ms = [np.asarray(res["step_ms"])[steady] for res in ranks]
+    tracked = [m[~np.asarray(res["inserted"])[steady]] for m, res in zip(rank_ms, ranks)]
+    ref_tracked = ref_ms[steady][~ref_ins[steady]]
+    print(f"BatchSession(cfg, {BATCH_B}, mesh=) over 2 gloo ranks sharing one card, "
+          f"{len(frames)} frames at {leg.camera.width}x{leg.camera.height}: poses, "
+          f"keyframes {ranks[0]['kf'].tolist()}, loops {ranks[0]['loops'].tolist()}, lost "
+          f"{ranks[0]['lost'].tolist()} and map points {ranks[0]['pts'].tolist()} equal "
+          f"the unsharded BatchSession's on every rank")
+    print(f"  2 ranks sharing one card ({card}): steps {STEADY_FROM}-{len(frames) - 1} p50 "
+          f"{' / '.join(f'{np.percentile(m, 50):.3f}' for m in rank_ms)} ms (rank 0 / 1, "
+          f"2 sequences each, CUDA events), {BATCH_B * len(rank_ms[0]) / (max(m.sum() for m in rank_ms) / 1e3):.2f} "
+          f"sequence-frames/s; steps without an insert on the rank "
+          f"({' / '.join(str(len(t)) for t in tracked)}) p50 "
+          f"{' / '.join(f'{np.percentile(t, 50):.3f}' if len(t) else '-' for t in tracked)} ms; "
+          f"the unsharded session in this process p50 "
+          f"{np.percentile(ref_ms[steady], 50):.3f} ms, steps without an insert "
+          f"({len(ref_tracked)}) p50 "
+          f"{np.percentile(ref_tracked, 50) if len(ref_tracked) else float('nan'):.3f} ms, "
+          f"{BATCH_B * len(ref_ms[steady]) / (ref_ms[steady].sum() / 1e3):.2f} sequence-frames/s; "
+          f"the two ranks' programs {ranks[0]['programs_ms']:.1f} / "
+          f"{ranks[1]['programs_ms']:.1f} ms the first time, "
+          f"{ranks[0]['programs_ms_again']:.1f} / {ranks[1]['programs_ms_again']:.1f} ms "
+          f"the second; start to end {ranks_s:.1f} s")
+    print(f"  rank launches (programs + session): "
+          f"{[{k: res['program_launches'][k] + res['session_launches'][k] for k in counters} for res in ranks]}")
+    for res in ranks:
+        check(res["session_launches"]["gn_reduce_batched"] == 22 * (len(frames) - 1),
+              f"session launches {res['session_launches']}")
+        check(res["session_launches"]["gn_reduce"] == 0, "a single gn_reduce launch")
+    for r, res in enumerate(ranks):
+        own = res["kf"][r * (BATCH_B // PAR_RANKS): (r + 1) * (BATCH_B // PAR_RANKS)]
+        check(res["session_launches"]["gated_match"] == int((own - 1).sum()),
+              f"rank {r} gated_match launches {res['session_launches']}")
+
+    # ---- batch scaling on the card
+    for c in counters.values():
+        c.launches = 0
+    rows = scaling.batch_scaling(cfg.camera, cfg.icp, iters=SCALING_ITERS)
+    for k, c in counters.items():
+        launches[k] += c.launches
+    for r in rows:
+        print(f"batch_scaling {cfg.camera.width}x{cfg.camera.height} B={r['batch']}: "
+              f"{r['frames_per_s']:.2f} frames/s, step {r['step_ms']:.3f} ms, efficiency "
+              f"{r['efficiency']:.3f}" + (f", marginal {r['marginal_ms_per_seq']:.3f} ms a "
+                                          f"sequence" if "marginal_ms_per_seq" in r else "")
+              + f" (CUDA events, mean of {SCALING_ITERS}; {card})")
+    check([r["batch"] for r in rows] == [1, 2, 4, 8] and all(
+        r["frames_per_s"] > 0 for r in rows), f"batch scaling rows {rows}")
+    check(counters["gn_reduce_batched"].launches == 22 * (SCALING_ITERS + 2) * 4,
+          f"batch_scaling launches {counters['gn_reduce_batched'].launches}")
+
+    # ---- the verb, as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scaling.json")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "slam_rgbd_tpu_torch", "benchmark", "--scaling",
+             "--iters", "5", "--out", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"benchmark --scaling failed ({cli.returncode}): "
+                                   f"{cli.stderr[-2000:]}")
+        with open(out) as f:
+            rep = json.load(f)
+    check(rep["hardware"] == torch.cuda.get_device_name(0) and rep["n_devices"] == 1
+          and rep["platform"] == "cuda", f"report {rep}")
+    check([r["mesh_data"] for r in rep["mesh_scaling"]] == [1]
+          and len(rep["batch_scaling_1dev"]) == 4, f"report tables {rep}")
+    print(f"`benchmark --scaling --iters 5` in {cli_s:.1f} s: {rep['hardware']}, "
+          f"n_devices {rep['n_devices']}, mesh_scaling "
+          f"{[(r['mesh_data'], round(r['frames_per_s'], 2)) for r in rep['mesh_scaling']]} "
+          f"frames/s, batch_scaling_1dev "
+          f"{[(r['batch'], round(r['frames_per_s'], 2)) for r in rep['batch_scaling_1dev']]} "
+          f"frames/s ({card})")
+    print(f"parallel phase {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches
 
 
 def main() -> int:
@@ -1898,6 +2301,7 @@ def main() -> int:
     small_phase(cfg)
     small_backend = small_backend_phase(cfg)
     run = main_phase(cfg, with_control, with_profile)
+    ba_window = _ba_window(run["session"].map, cfg)
     reloc = reloc_phase(run)
     lost = lost_phase(cfg, run)
     run["session"].close()
@@ -1911,6 +2315,10 @@ def main() -> int:
     small_batch_phase(cfg)
     batch = batch_phase(cfg, with_profile)
     check_no_errors("batch phases")
+    par = parallel_phase(cfg, card, ham, ba_window, leg["graph"], batch)
+    batch_launches = {k: batch[k] for k in ("batched", "gated", "top2")}
+    del batch
+    check_no_errors("parallel phase")
     full_res = f"{cfg.camera.height}x{cfg.camera.width}"
     full = next(r for r in gn["rows"] if r["shape"].startswith(full_res))
     # the batch phase's shape: BATCH_B problems at full resolution
@@ -1929,13 +2337,14 @@ def main() -> int:
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:493",
              launches=(stacked_launches + degraded["gn_reduce_batched"]
                        + pipe["gn_reduce_batched"] + leg["gn_reduce_batched"]
-                       + batch["batched"]),
+                       + batch_launches["batched"] + par["gn_reduce_batched"]),
              max_abs_err=gnb["max_err"],
              **{k: full_b[k] for k in timing}, library_ms=None),
         dict(name="gated_match", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:291",
              launches=(gated_launches + degraded["gated_match"] + pipe["gated_match"]
-                       + leg["gated_match"] + batch["gated"]),
+                       + leg["gated_match"] + batch_launches["gated"]
+                       + par["gated_match"]),
              max_abs_err=ham["gated_match"]["max_abs_err"],
              **{k: ham["gated_match"][k] for k in timing}, library_ms=None),
         dict(name="hamming_top2", route="cuda", source=csrc + "hamming.cu",
@@ -1943,7 +2352,8 @@ def main() -> int:
              launches=(main_top2 + reloc["launches"] + lost["launches"]
                        + degraded["hamming_top2"] + pipe["hamming_top2"]
                        + leg["hamming_top2"]
-                       + small_backend["top2"] + batch["top2"]),
+                       + small_backend["top2"] + batch_launches["top2"]
+                       + par["hamming_top2"]),
              max_abs_err=ham["hamming_top2"]["max_abs_err"],
              **{k: ham["hamming_top2"][k] for k in timing}, library_ms=None),
     ]

@@ -6,6 +6,7 @@
     python -m slam_rgbd_tpu_torch eval <estimate.txt> <groundtruth.txt>
     python -m slam_rgbd_tpu_torch export <input> <out.ply | out.ppm>
     python -m slam_rgbd_tpu_torch serve <input>   web point-cloud viewer
+    python -m slam_rgbd_tpu_torch benchmark --scaling [--out report.json]
 
 An input is a TUM or ICL-NUIM directory, a `.rgbd` recording,
 `synthetic[:N]`, or `grabber:module:factory` (a `FrameGrabber` factory).
@@ -13,8 +14,11 @@ An input is a TUM or ICL-NUIM directory, a `.rgbd` recording,
 thread (`--threaded` adds the producer / consumer threads and the bounded
 queue), drain it with a final backend pass, and print frames, keyframes,
 map points, loops and, where the input has ground truth, the ATE with each
-estimate paired to the ground truth nearest in time. Every verb runs on the
-CUDA device and raises without one; `--device cpu` asks for the CPU.
+estimate paired to the ground truth nearest in time. `benchmark --scaling`
+prints the scaling report of `parallel.scaling` as JSON (frames/s of batched
+tracking at B = 1, 2, 4, 8 on one device, and of `dist.batch_track` at each
+mesh size up to the number of cards). Every verb runs on the CUDA device and
+raises without one; `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -235,6 +239,21 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    from slam_rgbd_tpu_torch.parallel.scaling import scaling_report
+
+    cfg = _load_config(args)
+    rep = scaling_report(cfg.camera, cfg.icp, iters=args.iters, width=args.width,
+                         height=args.height, device=args.device)
+    out = json.dumps(rep, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(out + "\n")
+        print(f"scaling report -> {args.out}")
+    print(out)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--config", help="YAML config (default: the Astra profile)")
@@ -299,6 +318,14 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--frame", type=int, default=0)
     ps.add_argument("--port", type=int, default=8080)
     source_opts(ps)
+
+    pb = verb("benchmark", cmd_benchmark, "scaling report (--scaling)")
+    pb.add_argument("--scaling", action="store_true",
+                    help="frames/s against the batch size and the mesh size")
+    pb.add_argument("--iters", type=int, default=10)
+    pb.add_argument("--width", type=int, default=0)
+    pb.add_argument("--height", type=int, default=0)
+    pb.add_argument("--out", help="write the JSON report here")
     return p
 
 
@@ -314,7 +341,11 @@ def _require_device(device: str) -> None:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.verb == "benchmark" and not args.scaling:
+        parser.error("benchmark: only --scaling is available (the throughput "
+                     "benchmark is not part of the port)")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",

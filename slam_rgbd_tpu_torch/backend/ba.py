@@ -1,7 +1,9 @@
 """Sliding-window local bundle adjustment: Schur complement, dense, in torch.
 
-Counterpart of `slam_rgbd_tpu/backend/ba.py` (without its `psum_axis`
-argument, which belongs to the multi-device layer).
+Counterpart of `slam_rgbd_tpu/backend/ba.py`. Its `psum_axis` is `group`
+here: with a process group, each rank holds a block of the observation
+columns and every sum over observations ends in an all-reduce over the group
+(`parallel.dist.sharded_local_ba`).
 
 Formulation (standard local BA):
   * Variables: window keyframe poses T_w (W, 4, 4) and map-point positions
@@ -40,6 +42,7 @@ import torch
 
 from slam_rgbd_tpu_torch.core import se3
 from slam_rgbd_tpu_torch.core.config import BAConfig, CameraIntrinsics
+from slam_rgbd_tpu_torch.parallel.mesh import all_sum
 
 
 class BAResult(NamedTuple):
@@ -128,8 +131,13 @@ def scatter_sum(index: torch.Tensor, values: torch.Tensor, rows: int) -> torch.T
 
 
 def _make_lm(window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg: BAConfig,
-             free_mask, P: int):
-    """The LM machinery over a fixed observation set: (cost_fn, lm_iter)."""
+             free_mask, P: int, group=None):
+    """The LM machinery over a fixed observation set: (cost_fn, lm_iter).
+
+    With a process group, the observation set is this rank's block of
+    columns: each sum over observations (point blocks, camera blocks, the
+    coupling tensor, the cost) is completed by an all-reduce over `group`,
+    so every rank solves the same system and takes the same LM decision."""
     W, K = obs_pid.shape
     D = 6 * W
     dev = obs_pid.device
@@ -154,7 +162,7 @@ def _make_lm(window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg: BAConfig,
         rn = torch.linalg.norm(r, dim=-1)
         t2 = torch.clamp((rn / c_tukey) ** 2, 0.0, 1.0)
         rho = (c_tukey * c_tukey / 6.0) * (1.0 - (1.0 - t2) ** 3)
-        return torch.sum(torch.where(mask, rho, 0.0))
+        return all_sum(torch.sum(torch.where(mask, rho, 0.0)), group)
 
     def lm_iter(state):
         poses, X, lam, cost = state
@@ -172,10 +180,11 @@ def _make_lm(window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg: BAConfig,
         # point blocks Hpp (P, 3, 3), gp (P, 3)
         JxT_Jx = Jx.transpose(-1, -2) @ wJx
         JxT_r = (wJx.transpose(-1, -2) @ r[..., None])[..., 0]
-        Hpp = scatter_sum(flat, JxT_Jx.reshape(-1, 3, 3), P + 1)[:P]
-        gp = scatter_sum(flat, JxT_r.reshape(-1, 3), P + 1)[:P]
-        observed = scatter_sum(
-            flat, torch.ones(flat.shape, dtype=torch.int32, device=dev), P + 1)[:P] > 0
+        Hpp = all_sum(scatter_sum(flat, JxT_Jx.reshape(-1, 3, 3), P + 1)[:P], group)
+        gp = all_sum(scatter_sum(flat, JxT_r.reshape(-1, 3), P + 1)[:P], group)
+        observed = all_sum(scatter_sum(
+            flat, torch.ones(flat.shape, dtype=torch.int32, device=dev), P + 1)[:P],
+            group) > 0
 
         # damped inverse of each block, the damping relative to its scale
         tr = (Hpp[:, 0, 0] + Hpp[:, 1, 1] + Hpp[:, 2, 2]) / 3.0
@@ -183,14 +192,15 @@ def _make_lm(window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg: BAConfig,
         Hpp_inv = torch.where(observed[:, None, None], _inv3x3(Hpp), 0.0)
 
         # camera blocks Hcc (W, 6, 6), gc (W, 6)
-        Hcc_blocks = torch.sum(Jc.transpose(-1, -2) @ wJc, dim=1)
-        gc = torch.sum((wJc.transpose(-1, -2) @ r[..., None])[..., 0], dim=1)
+        Hcc_blocks = all_sum(torch.sum(Jc.transpose(-1, -2) @ wJc, dim=1), group)
+        gc = all_sum(torch.sum((wJc.transpose(-1, -2) @ r[..., None])[..., 0], dim=1),
+                     group)
 
         # coupling: per-observation Jc^T Jx (6, 3) summed into (P, W, 6, 3)
         JcT_Jx = Jc.transpose(-1, -2) @ wJx
-        A = scatter_sum(
+        A = all_sum(scatter_sum(
             (pid_safe * W + cam_col).reshape(-1), JcT_Jx.reshape(-1, 6, 3),
-            (P + 1) * W).reshape(P + 1, W, 6, 3)[:P]
+            (P + 1) * W).reshape(P + 1, W, 6, 3)[:P], group)
 
         # Schur: S = Hcc - sum_p A_p Hpp_p^-1 A_p^T
         AH = torch.einsum("pwab,pbc->pwac", A, Hpp_inv)
@@ -236,12 +246,14 @@ def _make_lm(window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg: BAConfig,
     return cost_fn, lm_iter
 
 
-def _final_stats(poses, X, obs_uv, obs_z, obs_pid, obs_ok, cam):
-    """(rmse over the active observations, their number)."""
+def _final_stats(poses, X, obs_uv, obs_z, obs_pid, obs_ok, cam, group=None):
+    """(rmse over the active observations, their number), summed over the
+    ranks of `group` where there is one."""
     r, _, _, mask = _reproj_residuals(poses, X, obs_uv, obs_z, obs_pid, obs_ok, cam)
     rn2 = torch.sum(r * r, dim=-1)
-    n = torch.sum(mask)
-    rmse = torch.sqrt(torch.sum(torch.where(mask, rn2, 0.0)) / torch.clamp_min(n, 1))
+    n = all_sum(torch.sum(mask), group)
+    rmse = torch.sqrt(all_sum(torch.sum(torch.where(mask, rn2, 0.0)), group)
+                      / torch.clamp_min(n, 1))
     return rmse, n
 
 
@@ -256,6 +268,7 @@ def local_ba(
     cam: CameraIntrinsics,
     cfg: BAConfig,
     free_mask: torch.Tensor | None = None,  # (W,) bool: poses to optimize
+    group=None,  # process group over which the observation columns are split
 ) -> BAResult:
     """Local BA over a fixed camera set, `cfg.iters` LM iterations.
 
@@ -263,10 +276,16 @@ def local_ba(
     residuals, constraining the points, but their poses do not move. When
     `free_mask` is None every valid camera except the first is free. Points
     that the camera set does not observe are untouched.
+
+    With `group` (a `torch.distributed` process group) the observation
+    arrays are this rank's block of columns, the poses and points are the
+    same on every rank, and every observation sum is all-reduced over the
+    group: each rank returns the same result, equal to the unsplit call up
+    to the order of the sums. `group=None` is the one-device solve.
     """
     cost_fn, lm_iter = _make_lm(
         window_valid, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg, free_mask,
-        pt_xyz.shape[0],
+        pt_xyz.shape[0], group,
     )
     lam = torch.full((), cfg.damping, dtype=torch.float32, device=pt_xyz.device)
     state = (poses_wc, pt_xyz, lam, cost_fn(poses_wc, pt_xyz))
@@ -274,7 +293,7 @@ def local_ba(
         state = lm_iter(state)
     poses_out, X_out = state[:2]
     rmse, n = _final_stats(poses_out, X_out, obs_uv, obs_z, obs_pid,
-                           obs_ok & window_valid[:, None], cam)
+                           obs_ok & window_valid[:, None], cam, group)
     return BAResult(kf_pose=poses_out, pt_xyz=X_out, rmse_px=rmse, n_obs=n)
 
 

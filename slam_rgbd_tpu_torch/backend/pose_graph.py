@@ -1,7 +1,8 @@
 """Pose-graph Gauss-Newton over keyframe poses (the loop-closure backend).
 
-Counterpart of `slam_rgbd_tpu/backend/pose_graph.py` (without its
-`psum_axis` argument, which belongs to the multi-device layer): a
+Counterpart of `slam_rgbd_tpu/backend/pose_graph.py` (its `psum_axis` is
+`group` here: each rank assembles the system from its block of edges and an
+all-reduce completes it, `parallel.dist.sharded_pose_graph`): a
 fixed-capacity edge list (the odometry chain the keyframe insert writes, and
 the loop constraints) and the solver. Residual per edge
 r = log(T_meas^-1 T_i^-1 T_j) with the small-residual Jacobians J_j = I,
@@ -20,6 +21,7 @@ import torch
 
 from slam_rgbd_tpu_torch.backend.ba import scatter_sum
 from slam_rgbd_tpu_torch.core import se3
+from slam_rgbd_tpu_torch.parallel.mesh import all_sum
 
 CG_TOL = 1e-5
 CG_MAXITER = 256
@@ -118,9 +120,15 @@ def optimize_pose_graph(
     edges: EdgeList,
     iters: int = 10,
     damping: float = 1e-6,
+    group=None,  # process group over which the edge slots are split
 ) -> PGResult:
     """Gauss-Newton with the first valid node fixed as gauge; invalid nodes
-    and nodes without edges keep their poses."""
+    and nodes without edges keep their poses.
+
+    With `group`, `edges` is this rank's block of the edge slots and the
+    poses are the same on every rank: the (M, M, 6, 6) blocks, the gradient
+    and the final stats are all-reduced over the group, so every rank takes
+    the same steps. `group=None` is the one-device solve."""
     M = poses.shape[0]
     D = 6 * M
     dev = poses.device
@@ -144,10 +152,10 @@ def optimize_pose_graph(
         gi = (Jiw.transpose(-1, -2) @ r[..., None])[..., 0]
         gj = r * ew[:, :, 0]
 
-        Hb = scatter_sum(
+        Hb = all_sum(scatter_sum(
             torch.cat([ei * M + ei, ej * M + ej, ei * M + ej, ej * M + ei]),
-            torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]), M * M)
-        g = scatter_sum(torch.cat([ei, ej]), torch.cat([gi, gj]), M)
+            torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]), M * M), group)
+        g = all_sum(scatter_sum(torch.cat([ei, ej]), torch.cat([gi, gj]), M), group)
 
         H = Hb.reshape(M, M, 6, 6).transpose(1, 2).reshape(D, D)
         H = torch.where(fmask2, H, 0.0)
@@ -164,9 +172,9 @@ def optimize_pose_graph(
                         se3.normalize_rotation(T @ se3.exp(d)), T)
 
     r, _, _ = _edge_residuals(T, edges)
-    n = edges.valid.sum()
+    n = all_sum(edges.valid.sum(), group)
     rmse = torch.sqrt(
-        torch.sum(torch.where(edges.valid[:, None], r * r, 0.0))
+        all_sum(torch.sum(torch.where(edges.valid[:, None], r * r, 0.0)), group)
         / torch.clamp_min(n, 1))
     return PGResult(poses=T, rmse=rmse, n_edges=n)
 

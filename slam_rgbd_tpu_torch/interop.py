@@ -171,9 +171,10 @@ def batch_state_from_numpy(session, *, maps, edges, n_edges, T_world, motion,
     pyramid (numpy dicts with a leading B), and the host counters (`n_kf`
     (B,), frame index, per-sequence last keyframe frame, last loop keyframe
     and lost streak; those left out keep a fresh session's values). The
-    trajectory log stays as it is."""
+    trajectory log stays as it is. On a session sharded over a mesh, B is
+    the rank's block (`session.n_local`) and the arrays are that block's."""
     dev = session.device
-    B = session.B
+    B = session.n_local
 
     def pose(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
@@ -199,7 +200,8 @@ def batch_state_to_numpy(session) -> dict:
     """The array state of a `BatchSession` in the JAX package's layout:
     `maps` and `edges` as dicts of arrays with a leading B, `n_edges`,
     `T_world`, `motion`, `last_kf_T`, `prev_pyr` (None before the first
-    frame) and the host counters."""
+    frame) and the host counters; on a sharded session, those of the rank's
+    block of sequences."""
     return {
         "maps": _stack(session.maps),
         "edges": _stack(session.edges),

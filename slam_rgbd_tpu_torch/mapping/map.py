@@ -290,15 +290,29 @@ def match_against_map(
     torch, outside the kernel. Returns (K,) int32 map-point ids, -1 if
     unmatched.
     """
+    d1, i1, d2, i2 = association_candidates(
+        m.pt_xyz, m.pt_signs, m.pt_valid, signs, ok, kp_uv, kp_z, T_world_cam,
+        cam, px_radius, z_rel_tol, kp_pts, merge_radius)
+    return association_ids(d1, i1, d2, i2, max_distance, merge_max_distance,
+                           kp_pts is not None)
+
+
+def association_candidates(pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z,
+                           T_world_cam, cam, px_radius: float, z_rel_tol: float,
+                           kp_pts, merge_radius: float):
+    """The two tiers' winners of `match_against_map` over a table of points
+    (the whole map, or one rank's block of it): (d1, i1, d2, i2), each (K,),
+    distances and first indices into the table as `gated_match` returns
+    them; the merge tier is off where `kp_pts` is None."""
     K = signs.shape[0]
-    # project all map points into the query camera
+    # project the points into the query camera
     T_cw = se3.inverse(T_world_cam)
-    p_c = m.pt_xyz @ T_cw[:3, :3].T + T_cw[:3, 3]  # (P, 3)
+    p_c = pt_xyz @ T_cw[:3, :3].T + T_cw[:3, 3]  # (P, 3)
     z = p_c[:, 2]
     z_safe = torch.clamp_min(z, 1e-6)
     pu = cam.fx * p_c[:, 0] / z_safe + cam.cx
     pv = cam.fy * p_c[:, 1] / z_safe + cam.cy
-    proj_ok = m.pt_valid & (z > cam.min_depth) & (z < cam.max_depth)
+    proj_ok = pt_valid & (z > cam.min_depth) & (z < cam.max_depth)
 
     if kp_pts is not None:
         pts_w = kp_pts @ T_world_cam[:3, :3].T + T_world_cam[:3, 3]  # (K, 3)
@@ -312,15 +326,22 @@ def match_against_map(
     ], dim=1)
     p_meta = torch.cat([
         pu[:, None], pv[:, None], z[:, None], proj_ok[:, None].to(f32),
-        m.pt_xyz, (m.pt_xyz * m.pt_xyz).sum(dim=1, keepdim=True),
+        pt_xyz, (pt_xyz * pt_xyz).sum(dim=1, keepdim=True),
     ], dim=1)
-    d1, i1, d2, i2 = gated_match(
-        signs, q_meta, m.pt_signs, p_meta,
+    return gated_match(
+        signs, q_meta, pt_signs, p_meta,
         px_radius=px_radius, z_rel_tol=z_rel_tol,
         merge_radius=(merge_radius if kp_pts is not None else -1.0),
     )
+
+
+def association_ids(d1, i1, d2, i2, max_distance: float, merge_max_distance: float,
+                    merge: bool) -> torch.Tensor:
+    """Map-point ids from the tiers' winners: the tight tier's where its
+    distance is under `max_distance`, else (with `merge`) the merge tier's
+    where under `merge_max_distance`, else -1."""
     pid = torch.where(d1 < max_distance, i1, -1)
-    if kp_pts is not None:
+    if merge:
         merge_pid = torch.where(d2 < merge_max_distance, i2, -1)
         pid = torch.where(pid >= 0, pid, merge_pid)
     return pid

@@ -1,9 +1,13 @@
-"""Multi-sequence SLAM: N sequences tracked concurrently on one device.
+"""Multi-sequence SLAM: N sequences tracked concurrently on one device or
+over the `data` axis of a mesh.
 
-Counterpart of `slam_rgbd_tpu/runtime/batch_session.py` (without its `mesh`
-argument and sharding, which belong to the multi-device layer). The state of
-N independent SLAM sessions lives on one device; one synchronized frame per
-sequence goes through `process_frames`.
+Counterpart of `slam_rgbd_tpu/runtime/batch_session.py`. The state of N
+independent SLAM sessions lives on one device; one synchronized frame per
+sequence goes through `process_frames`. With a mesh (`parallel.mesh`), each
+rank of the `data` axis holds N / size of the sequences, a consecutive block,
+and runs the same steps on them alone: nothing moves between ranks in the
+steady state (the JAX package's zero cross-device traffic). Only the
+outputs that cover every sequence gather the blocks.
 
   * tracking: natively batched. The pyramids of all sequences are built with
     a leading B, and `odometry.icp.track_frame_batched` runs every GN
@@ -45,6 +49,7 @@ from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
 from slam_rgbd_tpu_torch.features import detect as fdetect
 from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame_batched
+from slam_rgbd_tpu_torch.parallel import mesh as pmesh
 from slam_rgbd_tpu_torch.runtime.session import (
     _features, _kf_insert, _reloc, _resolve_device,
 )
@@ -248,7 +253,7 @@ class BatchState:
 
 
 class BatchSession:
-    """N concurrent SLAM sequences on one device.
+    """N concurrent SLAM sequences on one device, or sharded over a mesh.
 
     Feed one synchronized frame per sequence with
     `process_frames(ts, depth (B, H, W) u16, rgb (B, H, W, 3) u8)`; read
@@ -257,28 +262,46 @@ class BatchSession:
     unless the caller asks for `device="cpu"`; without a card the default
     raises. On CUDA it turns TF32 off for matrix products and cuDNN: the
     6x6 solves, the Schur products and the CG products need full float32.
+
+    With `mesh` (a `DeviceMesh` from `parallel.mesh.make_mesh`), this rank
+    holds the block of `n_seq / mesh[data]` sequences at its index along the
+    data axis (`n_local` of them). `process_frames` takes the full batch on
+    every rank and keeps that block. `poses()`, `keyframe_counts`,
+    `map_point_counts()`, `ate_per_sequence()` and `state` return all
+    `n_seq` sequences on every rank through one gather each: they are
+    collectives, called by every rank of the data axis together. The array
+    state (`maps`, `edges`, `T_world`, ...) is the rank's block.
     """
 
-    def __init__(self, cfg: SLAMConfig, n_seq: int, device="cuda"):
+    def __init__(self, cfg: SLAMConfig, n_seq: int, device="cuda", mesh=None):
         if n_seq < 1:
             raise ValueError(f"n_seq must be >= 1, got {n_seq}")
         self.cfg = cfg
         self.B = n_seq
+        self.mesh = mesh
+        self._seqs = slice(0, n_seq)
+        if mesh is not None:
+            axis = cfg.mesh.data_axis
+            ndev = mesh.size(mesh.mesh_dim_names.index(axis))
+            if n_seq % ndev:
+                raise ValueError(f"n_seq={n_seq} not divisible by data axis {ndev}")
+            self._seqs = pmesh.block(n_seq, mesh, axis)
+        self.n_local = n_local = self._seqs.stop - self._seqs.start
         self.device = dev = _resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         n_kp = sum(fdetect._per_level_budget(
             cfg.orb.n_features, cfg.orb.n_levels, cfg.orb.scale_factor))
-        self.maps = [smap.empty_map(cfg.keyframes, n_kp, dev) for _ in range(n_seq)]
+        self.maps = [smap.empty_map(cfg.keyframes, n_kp, dev) for _ in range(n_local)]
         self.edges = [
             pg_mod.EdgeList.empty(4 * cfg.keyframes.max_keyframes, dev)
-            for _ in range(n_seq)
+            for _ in range(n_local)
         ]
         self.n_edges = [
-            torch.zeros((), dtype=torch.int32, device=dev) for _ in range(n_seq)
+            torch.zeros((), dtype=torch.int32, device=dev) for _ in range(n_local)
         ]
-        eye = torch.eye(4, device=dev).repeat(n_seq, 1, 1)
+        eye = torch.eye(4, device=dev).repeat(n_local, 1, 1)
         self.T_world = eye
         self.motion = eye.clone()
         self.last_kf_T = eye.clone()
@@ -287,19 +310,19 @@ class BatchSession:
         # keyframe had when the frame was logged, and its slot on the host):
         # `poses()` re-anchors each frame to that keyframe's current pose
         self._traj_cap = 1024
-        self._traj = torch.zeros((n_seq, self._traj_cap, 4, 4), device=dev)
-        self._traj_kfT = torch.zeros((n_seq, self._traj_cap, 4, 4), device=dev)
+        self._traj = torch.zeros((n_local, self._traj_cap, 4, 4), device=dev)
+        self._traj_kfT = torch.zeros((n_local, self._traj_cap, 4, 4), device=dev)
         self._frame_kf: list[np.ndarray] = []  # per frame: (B,) keyframe slot
         self._traj_ts: list[float] = []
-        self._n_kf = np.zeros(n_seq, np.int64)
-        self._last_kf_frame = np.full(n_seq, -(10 ** 9))
-        self._last_loop_kf = np.full(n_seq, -(10 ** 9))
-        self._lost_streak = np.zeros(n_seq, np.int64)
+        self._n_kf = np.zeros(n_local, np.int64)
+        self._last_kf_frame = np.full(n_local, -(10 ** 9))
+        self._last_loop_kf = np.full(n_local, -(10 ** 9))
+        self._lost_streak = np.zeros(n_local, np.int64)
         self._frame_i = 0
-        self.state = BatchState(
-            lost=np.zeros(n_seq, np.int64),
-            loops=np.zeros(n_seq, np.int64),
-            relocalized=np.zeros(n_seq, np.int64),
+        self._state = BatchState(
+            lost=np.zeros(n_local, np.int64),
+            loops=np.zeros(n_local, np.int64),
+            relocalized=np.zeros(n_local, np.int64),
         )
 
     # ------------------------------------------------------------------ step
@@ -343,7 +366,7 @@ class BatchSession:
                     self.maps, self.edges, self.n_edges, self.T_world, new_kf,
                     cand[:, 1].astype(np.int32), do_loop, cfg)
                 closed = closed.cpu().numpy()
-                self.state.loops += closed.astype(np.int64)
+                self._state.loops += closed.astype(np.int64)
                 self._last_loop_kf = np.where(closed, new_kf, self._last_loop_kf)
         if do_ba.any() or allow.any():
             self.last_kf_T = torch.stack(
@@ -351,17 +374,20 @@ class BatchSession:
 
     def process_frames(self, ts: float, depth, rgb):
         """One synchronized frame for every sequence: depth (B, H, W) in
-        sensor units, rgb (B, H, W, 3) uint8, as arrays or tensors."""
+        sensor units, rgb (B, H, W, 3) uint8, as arrays or tensors; on a
+        mesh every rank passes all B and keeps its own block."""
+        if len(depth) != self.B or len(rgb) != self.B:
+            raise ValueError(
+                f"expected {self.B} sequences, got depth {np.shape(depth)}, "
+                f"rgb {np.shape(rgb)}")
+        if self.mesh is not None:
+            depth, rgb = depth[self._seqs], rgb[self._seqs]
         depth = self._upload(depth)
         rgb = self._upload(rgb)
-        if depth.shape[0] != self.B or rgb.shape[0] != self.B:
-            raise ValueError(
-                f"expected {self.B} sequences, got depth {tuple(depth.shape)}, "
-                f"rgb {tuple(rgb.shape)}")
         cfg = self.cfg
         traj_i = len(self._traj_ts)
         if traj_i >= self._traj_cap:  # double the log
-            pad = torch.zeros((self.B, self._traj_cap, 4, 4), device=self.device)
+            pad = torch.zeros((self.n_local, self._traj_cap, 4, 4), device=self.device)
             self._traj = torch.cat([self._traj, pad], dim=1)
             self._traj_kfT = torch.cat([self._traj_kfT, pad], dim=1)
             self._traj_cap *= 2
@@ -369,7 +395,7 @@ class BatchSession:
         if self.prev_pyr is None:  # bootstrap: keyframe 0 for every sequence
             self.prev_pyr = camera.build_frame_pyramid(
                 depth, cfg.camera, levels=cfg.icp.levels, rgb=rgb)
-            self._insert(ts, depth, rgb, np.ones(self.B, bool))
+            self._insert(ts, depth, rgb, np.ones(self.n_local, bool))
             self._last_kf_frame[:] = 0
         else:
             self.prev_pyr, self.T_world, self.motion, summaries = _batch_steady(
@@ -377,7 +403,7 @@ class BatchSession:
                 self.last_kf_T, cfg.camera, cfg.icp, cfg.keyframes)
             s = summaries.cpu().numpy()  # (B, 4): the step's one fetch
             ok = (s[:, 0] > 0.25) & (s[:, 2] > 0.5)
-            self.state.lost += (~ok).astype(np.int64)
+            self._state.lost += (~ok).astype(np.int64)
             self._lost_streak = np.where(ok, 0, self._lost_streak + 1)
             # relocalization for lost sequences, rate-limited like the
             # single session: on the 1st frame of a streak, then every 4th
@@ -395,7 +421,7 @@ class BatchSession:
                     accepted[:, None, None], torch.eye(4, device=self.device),
                     self.motion)
                 accepted = accepted.cpu().numpy()
-                self.state.relocalized += accepted.astype(np.int64)
+                self._state.relocalized += accepted.astype(np.int64)
                 self._lost_streak = np.where(accepted, 0, self._lost_streak)
                 ok = ok | accepted
             gap_ok = (
@@ -411,9 +437,16 @@ class BatchSession:
         self._frame_kf.append(np.maximum(self._n_kf - 1, 0).astype(np.int32))
         self._traj_ts.append(ts)
         self._frame_i += 1
-        self.state.frames += 1
+        self._state.frames += 1
 
     # --------------------------------------------------------------- outputs
+    def _all(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The rank's block of a per-sequence tensor -> every sequence's,
+        along `dim` (the block itself without a mesh)."""
+        if self.mesh is None:
+            return x
+        return pmesh.gather(x, self.mesh, self.cfg.mesh.data_axis, dim)
+
     def poses(self):
         """(ts (n,), trajectories (B, n, 4, 4)), loop- and BA-corrected.
 
@@ -426,11 +459,11 @@ class BatchSession:
         if n == 0:
             return ts, np.zeros((self.B, 0, 4, 4), np.float32)
         kf_idx = torch.tensor(np.stack(self._frame_kf, axis=1), device=self.device)
-        kf_now = torch.stack([m.kf_pose for m in self.maps])  # (B, M, 4, 4)
-        seq = torch.arange(self.B, device=self.device)[:, None]
-        anchor = kf_now[seq, kf_idx.long()]  # (B, n, 4, 4)
+        kf_now = torch.stack([m.kf_pose for m in self.maps])  # (b, M, 4, 4)
+        seq = torch.arange(self.n_local, device=self.device)[:, None]
+        anchor = kf_now[seq, kf_idx.long()]  # (b, n, 4, 4)
         out = anchor @ se3.inverse(self._traj_kfT[:, :n]) @ self._traj[:, :n]
-        return ts, out.cpu().numpy()
+        return ts, self._all(out).cpu().numpy()
 
     def ate_per_sequence(self, gt: np.ndarray) -> np.ndarray:
         """ATE RMSE (metres) per sequence against (B, n, 4, 4) ground truth."""
@@ -441,8 +474,21 @@ class BatchSession:
 
     @property
     def keyframe_counts(self) -> np.ndarray:
-        return self._n_kf.copy()
+        if self.mesh is None:
+            return self._n_kf.copy()
+        return self._all(torch.tensor(self._n_kf, device=self.device)).cpu().numpy()
 
     def map_point_counts(self) -> np.ndarray:
-        return torch.stack(
-            [smap.map_point_count(m) for m in self.maps]).cpu().numpy()
+        return self._all(torch.stack(
+            [smap.map_point_count(m) for m in self.maps])).cpu().numpy()
+
+    @property
+    def state(self) -> BatchState:
+        """Frames fed and per-sequence lost / loops / relocalized counts."""
+        if self.mesh is None:
+            return self._state
+        st = self._state
+        counts = self._all(torch.tensor(
+            np.stack([st.lost, st.loops, st.relocalized]), device=self.device), 1)
+        lost, loops, reloc = counts.cpu().numpy()
+        return BatchState(frames=st.frames, lost=lost, loops=loops, relocalized=reloc)

@@ -835,3 +835,99 @@ def test_threaded_runner_from_host_frames_on_card(cuda_device):
     assert sess.state.frames == 12 and runner.queue.dropped == 0
     assert runner.watchdog.stalls == 0
     np.testing.assert_array_equal(est, want)
+
+
+@pytest.fixture()
+def nccl_mesh(cuda_device, tmp_path):
+    """This process as a process group of one over NCCL (a store in a file),
+    and its (1, 1) mesh; the group is taken down after the test."""
+    from slam_rgbd_tpu_torch.core.config import MeshConfig
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield pmesh.make_mesh(MeshConfig(), "cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["local_ba", "batch_track", "map_association",
+                                     "pose_graph", "hamming_match"])
+def test_sharded_program_on_one_nccl_rank_on_card(nccl_mesh, cuda_device, program):
+    """Each program of `parallel.dist` on a (1, 1) mesh over NCCL against
+    the unsharded port on the card, with the kernel launches the sharded
+    call makes: BA and pose graph within the tolerances of
+    tests/test_parallel.py (poses 5e-5 / points 5e-4; poses 1e-5) and equal
+    counts, the tracker and the Hamming programs exact."""
+    import test_torch_parallel as tp
+
+    from slam_rgbd_tpu_torch.backend import ba as tba
+    from slam_rgbd_tpu_torch.backend import pose_graph as tpg
+    from slam_rgbd_tpu_torch.core.config import BAConfig as BA
+    from slam_rgbd_tpu_torch.mapping import map as tmap
+    from slam_rgbd_tpu_torch.parallel import dist as tdist
+
+    dev, mesh = cuda_device, nccl_mesh
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    counters = (tg.gn_reduce_batched, tg.gn_reduce, th.gated_match, th.hamming_top2)
+    before = [c.launches for c in counters]
+
+    def launched():
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    if program == "local_ba":
+        x = tp._ba_problem(rng)
+        args = [t(x[k]) for k in ("ba_poses", "ba_pts", "ba_uv", "ba_z", "ba_pid", "ba_ok")]
+        valid = torch.ones(4, dtype=torch.bool, device=dev)
+        got = tdist.sharded_local_ba(mesh, args[0], valid, *args[1:], tp.CAM, BA(iters=4))
+        want = tba.local_ba(args[0], valid, *args[1:], tp.CAM, BA(iters=4))
+        torch.testing.assert_close(got.kf_pose, want.kf_pose, atol=5e-5, rtol=0)
+        torch.testing.assert_close(got.pt_xyz, want.pt_xyz, atol=5e-4, rtol=0)
+        assert int(got.n_obs) == int(want.n_obs) > 0
+    elif program == "pose_graph":
+        x = tp._graph()
+        edges = tpg.EdgeList(**{f: t(x[f"pg_{f}"]) for f in tp.EDGE_FIELDS})
+        valid = torch.ones(12, dtype=torch.bool, device=dev)
+        got = tdist.sharded_pose_graph(mesh, t(x["pg_poses"]), valid,
+                                       tdist.edge_block(edges, mesh), iters=8)
+        want = tpg.optimize_pose_graph(t(x["pg_poses"]), valid, edges, iters=8)
+        torch.testing.assert_close(got.poses, want.poses, atol=1e-5, rtol=0)
+        assert int(got.n_edges) == int(want.n_edges) == 12
+    elif program == "batch_track":
+        seq = SyntheticSequence(5, CAM, device=dev)
+        frames = [render_frame(p, CAM, device=dev) for p in seq.poses]
+        pyr = lambda ids: camera.build_frame_pyramid(
+            torch.stack([frames[i][0] for i in ids]), CAM, levels=3,
+            rgb=torch.stack([frames[i][1] for i in ids]))
+        src, tgt = pyr([1, 2, 3, 4]), pyr([0, 1, 2, 3])
+        T0 = torch.eye(4, device=dev).repeat(4, 1, 1)
+        got = tdist.batch_track(mesh, src, tgt, T0, CAM, ICPConfig())
+        assert launched() == [22, 0, 0, 0]
+        want = icp.icp_align_batched(src, tgt, T0, CAM, ICPConfig())
+        for a, b in zip(got, (want.T, want.inliers, want.rmse, want.valid_fraction)):
+            assert torch.equal(a, b)
+    elif program == "map_association":
+        x = tp._map_scene(rng)
+        q = [t(x[k]) for k in ("mp_signs_q", "mp_ok", "mp_uv", "mp_z")]
+        pts = [t(x[k]) for k in ("mp_xyz", "mp_signs", "mp_valid")]
+        eye = torch.eye(4, device=dev)
+        for kp_pts in (t(x["mp_pts"]), None):
+            got = tdist.sharded_map_association(mesh, *q, eye, *pts, tp.CAM,
+                                                kp_pts=kp_pts, merge_radius=0.08)
+            cand = tmap.association_candidates(*pts, *q, eye, tp.CAM, 6.0, 0.08, kp_pts, 0.08)
+            want = tmap.association_ids(*cand, 64.0, 40.0, kp_pts is not None)
+            assert torch.equal(got, want) and int((got >= 0).sum()) > 20
+        assert launched() == [0, 0, 4, 0]
+    else:
+        s1, v1, s2, v2, _ = _variant(rng, 1024, 16384, "ties")
+        args = [t(a) for a in (s1, v1, s2, v2)]
+        idx, best, ok = tdist.sharded_hamming_match(mesh, *args)
+        assert launched() == [0, 0, 0, 1]
+        b, s, i = th.hamming_top2(*args)
+        assert torch.equal(idx, i) and torch.equal(best, b)
+        assert torch.equal(ok, (b < 64.0) & (b < 0.9 * s) & args[1])
+        assert int(ok.sum()) > 100
