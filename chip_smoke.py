@@ -136,6 +136,7 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -157,6 +158,8 @@ BATCH_FRAMES = 120
 PAR_FRAMES = 30  # the sharded batch session's frames: the batch phase's first
 PAR_RANKS = 2  # ranks that share the card in the parallel phase (gloo)
 SCALING_ITERS = 50  # timed steps a batch size in the parallel phase's batch_scaling
+SHARD_FRAMES = 60  # the sharded session's clean frames (the sweep's first); then
+#                    one damaged (a relocalization) and one more
 KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
 # the loop leg of the JAX package's bench: a constant twist composed onto
 # every tracked relative pose, denser keyframes, a shorter loop interval
@@ -916,16 +919,48 @@ def _p(ms) -> str:
             f"{np.percentile(ms, 99):.3f} ms")
 
 
-def _control_sweep(cfg, frames) -> np.ndarray:
+def _control_sweep(cfg, frames, cuda_graph: bool = True):
     """Steady-state call times of a session that only tracks: the same
     configuration with the keyframe thresholds out of reach, so that no call
-    after the bootstrap runs the feature stage or touches the map."""
+    after the bootstrap runs the feature stage or touches the map. ->
+    (call ms from frame STEADY_FROM on, poses, the session's frame graph)."""
     from slam_rgbd_tpu_torch import SLAMSession
 
-    sess = SLAMSession(_never_a_keyframe(cfg))
+    sess = SLAMSession(_never_a_keyframe(cfg), cuda_graph=cuda_graph)
     ms, _, _ = _sweep(sess, frames, cfg.camera.fps)
     check(sess.state.keyframes == 1, "the control inserted keyframes")
-    return ms[STEADY_FROM:]
+    return ms[STEADY_FROM:], sess.poses()[1], sess._graph
+
+
+def _graph_vs_eager(cfg, frames) -> dict:
+    """The tracking-only sweep with each tracked frame one CUDA graph replay
+    against the same sweep eagerly (`cuda_graph=False`), in turns (eager,
+    graph, graph, eager): poses bit for bit alike in all four, one capture a
+    graph run; tracked-call p50 / p99 and frames/s of each mode over its two
+    runs (CUDA events)."""
+    runs, poses = {False: [], True: []}, []
+    for graph in (False, True, True, False):
+        ms, T, fg = _control_sweep(cfg, frames, cuda_graph=graph)
+        runs[graph].append(ms)
+        poses.append(T)
+        if graph:
+            check(fg.captures == 1 and fg.replays == len(frames) - 2,
+                  f"{fg.captures} captures, {fg.replays} replays")
+    for T in poses[1:]:
+        check(np.array_equal(T, poses[0]), "graph replays and the eager step give other "
+              f"poses (largest difference {np.abs(T - poses[0]).max():.3e})")
+    out = {}
+    for graph, name in ((False, "eager"), (True, "graph")):
+        ms = np.concatenate(runs[graph])
+        out[name] = ms
+        print(f"tracking-only sweep, {name} ({'one CUDA graph replay a tracked frame' if graph else 'cuda_graph=False'}), "
+              f"2 runs of frames {STEADY_FROM}-{len(frames) - 1}: {len(ms) / (ms.sum() / 1e3):.2f} "
+              f"frames/s, tracked calls {_p(ms)} (CUDA events; runs p50 "
+              f"{' / '.join(f'{np.percentile(m, 50):.3f}' for m in runs[graph])} ms)")
+    print(f"graph replays equal the eager step bit for bit over {len(frames)} frames "
+          f"(4 runs: eager, graph, graph, eager); p50 eager / graph "
+          f"{np.percentile(out['eager'], 50) / np.percentile(out['graph'], 50):.2f}x")
+    return out
 
 
 def _inline_control(cfg, frames, gt) -> None:
@@ -967,7 +1002,7 @@ def main_phase(cfg, with_control: bool = False, with_profile: bool = False) -> d
 
     # the host's speed moves within one process, so the optional control runs
     # in this one, before and after the sweep that is measured
-    control = [_control_sweep(cfg, frames)] if with_control else []
+    control = [_control_sweep(cfg, frames)[0]] if with_control else []
 
     # the threaded backend, as the JAX package's bench_session runs it
     sess = SLAMSession(cfg, async_backend=True)  # the default device: the card
@@ -989,8 +1024,9 @@ def main_phase(cfg, with_control: bool = False, with_profile: bool = False) -> d
     worker = sess.worker
     completed, skipped = worker.completed, worker.skipped
     check_no_errors("main phase")
+    graph_vs_eager = _graph_vs_eager(cfg, frames)
     if with_control:
-        control.append(_control_sweep(cfg, frames))
+        control.append(_control_sweep(cfg, frames)[0])
         _inline_control(cfg, frames, gt)
 
     per_frame = all_ms[STEADY_FROM:]
@@ -1071,7 +1107,8 @@ def main_phase(cfg, with_control: bool = False, with_profile: bool = False) -> d
         _profile_tracked_frames(cfg, frames)
     return {"launches": launches, "stacked_launches": stacked_launches,
             "gated_launches": gated_launches, "top2_launches": top2_launches,
-            "fps": fps, "ate": ate, "session": sess, "frames": frames, "gt": gt}
+            "fps": fps, "ate": ate, "session": sess, "frames": frames, "gt": gt,
+            "graph_vs_eager": graph_vs_eager}
 
 
 def lost_phase(cfg, run: dict) -> dict:
@@ -1692,8 +1729,8 @@ def _batch_run(cfg, frames, n_seq: int):
 
 def _traced(fn):
     """Run `fn()` under torch.profiler -> (device ms, device operations,
-    cudaLaunchKernel calls, host ms of the traced span, the GN kernel's
-    device ms)."""
+    launches from the host: cudaLaunchKernel and cudaGraphLaunch calls,
+    host ms of the traced span, the GN kernel's device ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1712,7 +1749,7 @@ def _traced(fn):
             dev_ops += ev.count
             if "gn_kernel" in ev.key:
                 gn_us += us
-        elif ev.key == "cudaLaunchKernel":
+        elif ev.key in ("cudaLaunchKernel", "cudaGraphLaunch"):
             launches += ev.count
     check(dev_us > 0, "the profiler recorded no device time")
     return dev_us / 1e3, dev_ops, launches, host_ms_, gn_us / 1e3
@@ -1736,7 +1773,7 @@ def _profile_tracked(label: str, step, what: str, n_steps: int = 5) -> None:
 
     dev_ms, dev_ops, launches, traced_ms, gn_ms = (x / n_steps for x in _traced(traced_steps))
     print(f"profile, {label}, {n_steps} tracked {what}s: {dev_ops:.0f} device "
-          f"operations a {what} ({launches:.0f} cudaLaunchKernel), device time "
+          f"operations a {what} ({launches:.0f} kernel or graph launches from the host), device time "
           f"{dev_ms:.3f} ms a {what} (the GN kernel {gn_ms:.3f} ms of it), {what} "
           f"{traced_ms:.2f} ms under the profiler ({plain_ms:.2f} ms without): device "
           f"busy share {dev_ms / traced_ms:.4f}")
@@ -1760,9 +1797,11 @@ def _profile_tracked_frames(cfg, frames) -> None:
     from slam_rgbd_tpu_torch.core import camera
     from slam_rgbd_tpu_torch.odometry import icp
 
-    sess = SLAMSession(_never_a_keyframe(cfg))
-    _profile_tracked("single session", lambda i: sess.process_frame(
-        i / cfg.camera.fps, *frames[i]), "frame")
+    for graph in (True, False):
+        sess = SLAMSession(_never_a_keyframe(cfg), cuda_graph=graph)
+        _profile_tracked(f"single session, {'CUDA graph' if graph else 'eager'}",
+                         lambda i: sess.process_frame(i / cfg.camera.fps, *frames[i]),
+                         "frame")
     icfg = cfg.icp
     k0 = icfg.levels - 1
     lcam = cfg.camera.scaled(2.0 ** k0)
@@ -2069,6 +2108,80 @@ def _par_counters():
             "gated_match": th.gated_match, "hamming_top2": th.hamming_top2}
 
 
+def _shard_leg_config(cfg):
+    """The sharded session leg's configuration: decisions at the next call,
+    a (1, PAR_RANKS) mesh (which only a session given a mesh uses)."""
+    from slam_rgbd_tpu_torch.core.config import MeshConfig
+
+    return dataclasses.replace(
+        cfg, runtime=dataclasses.replace(cfg.runtime, max_decision_lag=1),
+        mesh=MeshConfig(data=1, model=PAR_RANKS))
+
+
+def _shard_leg_frames(cfg):
+    """The sharded session leg's frames on the card: the sweep's first
+    SHARD_FRAMES, then the next one with its depth in a central window only
+    (lost, then relocalized), then one more. -> (frames, ground truth)."""
+    from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gt = orbit_trajectory(N_FRAMES, sweep=True)[:SHARD_FRAMES + 2]
+    frames = [render_frame(p, cfg.camera, device=dev) for p in gt]
+    depth, rgb = frames[SHARD_FRAMES]
+    h, w = depth.shape
+    window = torch.zeros_like(depth)
+    rows, cols = slice(h // 4, 3 * h // 4), slice(5 * w // 16, 11 * w // 16)
+    window[rows, cols] = depth[rows, cols]
+    frames[SHARD_FRAMES] = (window, rgb)
+    return frames, gt
+
+
+def _map_digest(m, blk) -> dict:
+    """sha256 of every field of a map, the point table gathered from its
+    blocks: two maps with the same digests are equal bit for bit."""
+    import hashlib
+
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for f in dataclasses.fields(m):
+        x = getattr(m, f.name)
+        if blk is not None and f.name.startswith("pt_") and x.dim():
+            x = pmesh.gather(x, blk.mesh, blk.axis)
+        out[f.name] = hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _shard_session_run(sess, frames, fps: float) -> dict:
+    """Drive a session of the leg over its frames -> what the leg compares:
+    poses, keyframe poses, host counts, the map's digests, call ms (CUDA
+    events), the kernels' launches (counted from 0)."""
+    counters = _par_counters()
+    for c in counters.values():
+        c.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(frames) + 1)]
+    inserted = []
+    marks[0].record()
+    for i, (depth, rgb) in enumerate(frames):
+        before = sess.state.keyframes
+        sess.process_frame(i / fps, depth, rgb)
+        marks[i + 1].record()
+        inserted.append(sess.state.keyframes > before)
+    sess.flush_pipeline()  # the last decisions: the damaged frame's included
+    torch.cuda.synchronize()
+    st = sess.state
+    return {
+        "poses": sess.poses()[1], "kf_poses": sess.keyframe_poses()[1],
+        "counts": [st.keyframes, st.lost, st.relocalized, st.loops,
+                   sess.map_point_count()],
+        "digest": _map_digest(sess.map, sess._blk),
+        "ms": [marks[i].elapsed_time(marks[i + 1]) for i in range(len(frames))],
+        "inserted": inserted,
+        "launches": {k: c.launches for k, c in counters.items()},
+        "block_rows": int(sess.map.pt_xyz.shape[0]),
+    }
+
+
 def _parallel_rank(rank: int, world: int, path: str, cfg, leg, gts) -> dict:
     """One of the ranks sharing the card over gloo: the five programs on a
     (1, world) mesh, then `BatchSession(leg, 4, mesh=)` on a (world, 1) mesh
@@ -2117,7 +2230,94 @@ def _parallel_rank(rank: int, world: int, path: str, cfg, leg, gts) -> dict:
     out["poses"] = bs.poses()[1]
     out["kf"], out["loops"] = bs.keyframe_counts, bs.state.loops
     out["lost"], out["pts"] = bs.state.lost, bs.map_point_counts()
+    del bs, frames
+
+    # the map-block sharded session: each rank holds half of the point table
+    from slam_rgbd_tpu_torch import SLAMSession
+    from slam_rgbd_tpu_torch.runtime import checkpoint
+
+    t0 = time.perf_counter()
+    leg_cfg = _shard_leg_config(cfg)
+    frames, _ = _shard_leg_frames(cfg)
+    mesh = pmesh.make_mesh(leg_cfg.mesh, "cuda")
+    sess = SLAMSession(leg_cfg, mesh=mesh)
+    out["shard"] = _shard_session_run(sess, frames, cfg.camera.fps)
+    checkpoint.save(sess, os.path.join(os.path.dirname(path), "shard_ckpt"))
+    out["shard"]["leg_s"] = time.perf_counter() - t0
     return out
+
+
+def _shard_reference(cfg) -> dict:
+    """The sharded leg's frames through the unsharded session in this
+    process."""
+    from slam_rgbd_tpu_torch import SLAMSession
+
+    frames, gt = _shard_leg_frames(cfg)
+    t0 = time.perf_counter()
+    out = _shard_session_run(SLAMSession(_shard_leg_config(cfg)), frames, cfg.camera.fps)
+    out["s"], out["gt"] = time.perf_counter() - t0, gt
+    return out
+
+
+def _check_shard_leg(cfg, ranks, card: str, ref: dict, ckpt_dir: str) -> None:
+    """Both ranks' sharded session against the unsharded one: keyframes,
+    lost / relocalized counts, every pose and the whole map bit for bit; a
+    rank's K3 launches one an insert with a map and its K2 launches those of
+    the unsharded relocalization (two a try, the match and its cross-check);
+    the ranks' checkpoint restored into an unsharded session."""
+    from slam_rgbd_tpu_torch import SLAMSession
+    from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
+    from slam_rgbd_tpu_torch.runtime import checkpoint
+
+    kf, lost, reloc = ref["counts"][:3]
+    check(lost >= 1 and reloc >= 1, f"the damaged frame was not relocalized: {ref['counts']}")
+    for r, res in enumerate(ranks):
+        got = res["shard"]
+        check(got["block_rows"] == cfg.keyframes.max_map_points // PAR_RANKS,
+              f"rank {r} holds {got['block_rows']} point rows")
+        check(got["counts"] == ref["counts"], f"rank {r}: counts {got['counts']} != "
+              f"{ref['counts']} (keyframes, lost, relocalized, loops, map points)")
+        for k in ("poses", "kf_poses"):
+            check(np.array_equal(got[k], ref[k]), f"rank {r}: {k} differ from the unsharded "
+                  f"session's by {np.abs(got[k] - ref[k]).max():.3e}")
+        diff = [k for k in ref["digest"] if got["digest"][k] != ref["digest"][k]]
+        check(not diff, f"rank {r}: map fields {diff} differ from the unsharded session's")
+        check(got["launches"]["gated_match"] == ref["launches"]["gated_match"] == kf - 1,
+              f"rank {r}: gated_match launches {got['launches']} for {kf} keyframes")
+        check(got["launches"]["hamming_top2"] == ref["launches"]["hamming_top2"] >= 2,
+              f"rank {r}: hamming_top2 launches {got['launches']} against "
+              f"{ref['launches']}")
+        n_tracked = len(ref["ms"]) - 1
+        check(got["launches"]["gn_reduce"] == 12 * n_tracked
+              and got["launches"]["gn_reduce_batched"] == 10 * n_tracked,
+              f"rank {r}: gn launches {got['launches']}")
+    restored = checkpoint.restore(SLAMSession(_shard_leg_config(cfg)), ckpt_dir)
+    check(_map_digest(restored.map, None) == ref["digest"],
+          "the ranks' checkpoint restored unsharded is not the unsharded session's map")
+    check(np.array_equal(restored.keyframe_poses()[1], ref["kf_poses"]),
+          "the restored keyframe poses differ")
+    ate = ate_rmse(ref["poses"], ref["gt"])[0]
+    steady = slice(STEADY_FROM, None)
+    tracked = [np.asarray(res["shard"]["ms"])[steady][~np.asarray(res["shard"]["inserted"])[steady]]
+               for res in ranks]
+    ref_tracked = np.asarray(ref["ms"])[steady][~np.asarray(ref["inserted"])[steady]]
+    print(f"SLAMSession(cfg, mesh=) map-block sharded over {PAR_RANKS} gloo ranks sharing one "
+          f"card, {cfg.camera.width}x{cfg.camera.height}, {cfg.keyframes.max_map_points} "
+          f"points ({cfg.keyframes.max_map_points // PAR_RANKS} a rank), "
+          f"{cfg.orb.n_features} features, inline backend, max_decision_lag=1, "
+          f"{len(ref['ms'])} frames (frame {SHARD_FRAMES} damaged): keyframes {kf}, lost "
+          f"{lost}, relocalized {reloc}, map points {ref['counts'][4]}, every pose and the "
+          f"whole map equal to the unsharded session's bit for bit on both ranks; ATE "
+          f"{100 * ate:.3f} cm")
+    print(f"  launches a rank {ranks[0]['shard']['launches']} (unsharded "
+          f"{ref['launches']}); checkpoint from the ranks restored unsharded: map equal")
+    print(f"  tracked calls (frames {STEADY_FROM}-, CUDA events) p50 "
+          f"{' / '.join(f'{np.percentile(t, 50):.3f}' for t in tracked)} ms on the ranks, "
+          f"{np.percentile(ref_tracked, 50):.3f} ms unsharded; insert calls p50 "
+          f"{' / '.join(f'{np.percentile(np.asarray(res['shard']['ms'])[np.asarray(res['shard']['inserted'])], 50):.3f}' for res in ranks)} "
+          f"ms on the ranks, {np.percentile(np.asarray(ref['ms'])[np.asarray(ref['inserted'])], 50):.3f} "
+          f"ms unsharded; the leg {max(res['shard']['leg_s'] for res in ranks):.1f} s on "
+          f"the ranks (rendering included), {ref['s']:.1f} s unsharded ({card})")
 
 
 def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
@@ -2178,13 +2378,18 @@ def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
     # ---- two ranks sharing the card over gloo
     ref_bs, ref_ms, ref_ins = _batch_run(leg, frames, BATCH_B)
     ref_poses = ref_bs.poses()[1]
-    with tempfile.TemporaryDirectory() as tmp:
+    shard_ref = _shard_reference(cfg)
+    tmp = tempfile.mkdtemp(prefix="slam_par_")
+    ckpt_dir = os.path.join(tmp, "shard_ckpt")
+    try:
         path = os.path.join(tmp, "inputs.pt")
         torch.save({k: v.cpu() for k, v in x.items()}, path)
         t0 = time.perf_counter()
         ranks = pmesh.spawn(_parallel_rank, PAR_RANKS, args=(path, cfg, leg, batch["gts"]),
                             backend="gloo", device="cuda")
         ranks_s = time.perf_counter() - t0
+    finally:
+        os.remove(os.path.join(tmp, "inputs.pt"))
     block = k1 // PAR_RANKS
     for r, res in enumerate(ranks):
         _par_check(f"mesh (1, 2), gloo, rank {r}", res["programs"], want,
@@ -2239,6 +2444,13 @@ def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
         own = res["kf"][r * (BATCH_B // PAR_RANKS): (r + 1) * (BATCH_B // PAR_RANKS)]
         check(res["session_launches"]["gated_match"] == int((own - 1).sum()),
               f"rank {r} gated_match launches {res['session_launches']}")
+
+    # ---- the map-block sharded session on the two ranks
+    for r, res in enumerate(ranks):
+        for k in counters:
+            launches[k] += res["shard"]["launches"][k]
+    _check_shard_leg(cfg, ranks, card, shard_ref, ckpt_dir)
+    shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- batch scaling on the card
     for c in counters.values():

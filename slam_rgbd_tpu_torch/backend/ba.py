@@ -42,7 +42,7 @@ import torch
 
 from slam_rgbd_tpu_torch.core import se3
 from slam_rgbd_tpu_torch.core.config import BAConfig, CameraIntrinsics
-from slam_rgbd_tpu_torch.parallel.mesh import all_sum
+from slam_rgbd_tpu_torch.parallel.mesh import Block, all_sum, gather_rows, scatter_rows
 
 
 class BAResult(NamedTuple):
@@ -298,12 +298,17 @@ def local_ba(
 
 
 def _win_compact(window_valid, pt_xyz, obs_uv, obs_z, obs_pid, obs_ok,
-                 cam: CameraIntrinsics, cfg: BAConfig):
+                 cam: CameraIntrinsics, cfg: BAConfig, blk: Block | None = None):
     """Compaction stage of the windowed solve: pick the per-window point
     budget (most observations first, ties toward the higher, newer id) and
     remap the observation grid onto it. Returns
-    (sel, pid_c, ok_c, pt_c, n_observed)."""
-    P = pt_xyz.shape[0]
+    (sel, pid_c, ok_c, pt_c, n_observed).
+
+    The choice reads only the observation grid, which holds global point
+    ids, so with `blk` (`pt_xyz` this rank's block of the table) every rank
+    makes the same choice, and the chosen points are gathered from their
+    owners' blocks."""
+    P = pt_xyz.shape[0] if blk is None else blk.total
     C = min(cfg.max_points_per_window, P)
     dev = pt_xyz.device
     ok = obs_ok & window_valid[:, None] & (obs_pid >= 0)
@@ -327,21 +332,21 @@ def _win_compact(window_valid, pt_xyz, obs_uv, obs_z, obs_pid, obs_ok,
     lookup = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
     lookup[sel] = torch.arange(C, dtype=torch.int32, device=dev)
     lookup[P] = -1  # the pad writes above land on row P: restore it
-    pt_pad = torch.cat([pt_xyz, torch.zeros((1, 3), dtype=pt_xyz.dtype, device=dev)])
-    pt_c = pt_pad[sel]  # (C, 3)
+    pt_c = gather_rows(pt_xyz, sel, blk)  # (C, 3); the pad reads zeros
     pid_c = lookup[pid_safe]  # (W, K): compact id, -1 if masked or overflow
     return sel, pid_c, ok & (pid_c >= 0), pt_c, n_observed
 
 
-def _scatter_back(sel, X, pt_xyz, n_observed, poses, rmse, n) -> BAResult:
-    """The compact solution back into the full table (pad slots of `sel`
-    write the dump row P)."""
-    P, C = pt_xyz.shape[0], X.shape[0]
-    dev = pt_xyz.device
-    pt_pad = torch.cat([pt_xyz, torch.zeros((1, 3), dtype=pt_xyz.dtype, device=dev)])
-    pt_new = pt_pad.index_copy(0, sel, X)[:P]
-    pt_solved = torch.zeros((P + 1,), dtype=torch.bool, device=dev).index_fill_(
-        0, sel, True)[:P]
+def _scatter_back(sel, X, pt_xyz, n_observed, poses, rmse, n,
+                  blk: Block | None = None) -> BAResult:
+    """The compact solution back into the full table, or this rank's block
+    of it (pad slots of `sel`, and ids outside the block, write a dump
+    row)."""
+    C = X.shape[0]
+    pt_new = scatter_rows(pt_xyz, sel, X, blk)
+    pt_solved = scatter_rows(torch.zeros(pt_xyz.shape[:1], dtype=torch.bool,
+                                         device=pt_xyz.device), sel,
+                             torch.ones((C,), dtype=torch.bool, device=pt_xyz.device), blk)
     return BAResult(
         kf_pose=poses, pt_xyz=pt_new, rmse_px=rmse, n_obs=n, pt_solved=pt_solved,
         n_dropped=torch.clamp_min(n_observed - C, 0),
@@ -350,14 +355,16 @@ def _scatter_back(sel, X, pt_xyz, n_observed, poses, rmse, n) -> BAResult:
 
 def _windowed_single(poses_wc, window_valid, pt_xyz, obs_uv, obs_z, obs_pid,
                      obs_ok, cam: CameraIntrinsics, cfg: BAConfig,
-                     free_mask=None) -> BAResult:
-    """Windowed solve in one go (see `windowed_local_ba`)."""
+                     free_mask=None, blk: Block | None = None) -> BAResult:
+    """Windowed solve in one go (see `windowed_local_ba`). With `blk`, the
+    window's points are gathered from the blocks, every rank runs the same
+    solve on them, and each writes the solved rows of its own block."""
     sel, pid_c, ok_c, pt_c, n_observed = _win_compact(
-        window_valid, pt_xyz, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg)
+        window_valid, pt_xyz, obs_uv, obs_z, obs_pid, obs_ok, cam, cfg, blk)
     res = local_ba(poses_wc, window_valid, pt_c, obs_uv, obs_z, pid_c, ok_c,
                    cam, cfg, free_mask=free_mask)
     return _scatter_back(sel, res.pt_xyz, pt_xyz, n_observed, res.kf_pose,
-                         res.rmse_px, res.n_obs)
+                         res.rmse_px, res.n_obs, blk)
 
 
 def windowed_local_ba(

@@ -48,6 +48,18 @@ What differs from the reference, and why:
   * Sums whose result feeds an accept / reject (fusion's gain / lose counts)
     go through `backend.ba.scatter_sum`, which adds in a fixed order.
 
+Map-block sharding (`SLAMSession(cfg, mesh=)`): with a
+`parallel.mesh.Block`, the map's per-point arrays are this rank's block of
+the point table, the keyframe arrays and the observation graph are whole on
+every rank, and every rank runs the same pass. The windowed BA gathers the
+compacted window's points from their blocks, solves them on every rank
+alike and writes back the rows of its own block; fusion counts the
+observation deltas and finds the ghosts on the block; the pose graph and
+`ride_with_anchors` need no traffic (the graph is over keyframes, the ride
+is elementwise a point). A result holds this rank's block. Only the inline
+pass is sharded: the worker thread's collectives would need a process group
+of their own.
+
 The fusion thresholds are the reference's hard-coded ones (Hamming 64,
 ratio 0.9, 6 cm); the port matches them and keeps no option for them.
 
@@ -73,6 +85,7 @@ from slam_rgbd_tpu_torch.backend import pose_graph as pg_mod
 from slam_rgbd_tpu_torch.core.config import SLAMConfig
 from slam_rgbd_tpu_torch.features import match as fmatch
 from slam_rgbd_tpu_torch.mapping import map as smap
+from slam_rgbd_tpu_torch.parallel.mesh import Block, gather_rows
 
 log = logging.getLogger("slam_rgbd_tpu_torch.backend")
 
@@ -138,7 +151,8 @@ def snapshot(m: smap.MapState):
 
 
 def _backend_step(m: smap.MapState, edges: pg_mod.EdgeList, n_edges: torch.Tensor,
-                  kf_idx: int, allow_loop: bool, cfg: SLAMConfig, run_ba: bool):
+                  kf_idx: int, allow_loop: bool, cfg: SLAMConfig, run_ba: bool,
+                  blk: Block | None = None):
     """Local BA, the loop-candidate search, verification and the
     consistency gate on the device, one read-back of the packed stats, then
     the pose graph and the per-anchor point correction where the loop
@@ -160,6 +174,7 @@ def _backend_step(m: smap.MapState, edges: pg_mod.EdgeList, n_edges: torch.Tenso
         res = ba_mod._windowed_single(
             m.kf_pose[idx], valid, m.pt_xyz, m.kp_uv[idx], m.kp_pts[idx][..., 2],
             m.point_id[idx], m.kp_ok[idx] & valid[:, None], cfg.camera, cfg.ba, free,
+            blk=blk,
         )
         # window slots before the first keyframe repeat slot 0: they write a
         # dump row, so only valid slots reach the pose table
@@ -209,7 +224,7 @@ def _backend_step(m: smap.MapState, edges: pg_mod.EdgeList, n_edges: torch.Tenso
 
 
 def _loop_fuse_program(m: smap.MapState, query_idx: int, cand_idx: int,
-                       T_rel: torch.Tensor):
+                       T_rel: torch.Tensor, blk: Block | None = None):
     """Landmark fusion across an accepted loop (ORB-SLAM3's loop `Fuse`).
 
     The loop fired because map association failed on the revisit: the query
@@ -223,9 +238,11 @@ def _loop_fuse_program(m: smap.MapState, query_idx: int, cand_idx: int,
     query row re-pointed and ghost references cleared, for the global BA;
     fuse_row (K,) int32; ghost (P,) bool: duplicates spawned by the query
     whose only observation was just re-pointed; nobs_delta (P,) int32;
-    n_fused () int).
+    n_fused () int). With `blk`, ghost and nobs_delta are this rank's
+    block, counted on the block.
     """
-    P = m.capacity_pt
+    Pl = m.capacity_pt
+    start = 0 if blk is None else blk.start
     mt = fmatch.match(m.kp_signs[query_idx], m.kp_ok[query_idx],
                       m.kp_signs[cand_idx], m.kp_ok[cand_idx],
                       max_distance=64.0, ratio=0.9)
@@ -241,10 +258,15 @@ def _loop_fuse_program(m: smap.MapState, query_idx: int, cand_idx: int,
     fuse = inl & (cand_pid >= 0) & (q_row != cand_pid)
     fuse_row = torch.where(fuse, cand_pid, q_row)
 
+    def block_rows(ids, keep):
+        """The rows of this block that `ids` name where `keep`, else the
+        dump row Pl."""
+        local = ids - start
+        return torch.where(keep & (local >= 0) & (local < Pl), local, Pl).long()
+
     ones = torch.ones(fuse.shape, dtype=torch.int32, device=m.device)
-    gain = ba_mod.scatter_sum(torch.where(fuse, cand_pid, P).long(), ones, P + 1)[:P]
-    lose = ba_mod.scatter_sum(
-        torch.where(fuse & (q_row >= 0), q_row, P).long(), ones, P + 1)[:P]
+    gain = ba_mod.scatter_sum(block_rows(cand_pid, fuse), ones, Pl + 1)[:Pl]
+    lose = ba_mod.scatter_sum(block_rows(q_row, fuse & (q_row >= 0)), ones, Pl + 1)[:Pl]
     delta = gain - lose
     # ghosts: spawned by the query keyframe itself (the snapshot's newest:
     # nothing later can have observed them in the snapshot), now unobserved
@@ -252,13 +274,13 @@ def _loop_fuse_program(m: smap.MapState, query_idx: int, cand_idx: int,
              & (m.pt_nobs + delta <= 0))
     pid = m.point_id.clone()
     pid[query_idx] = fuse_row
-    flag = torch.cat([ghost, torch.zeros(1, dtype=torch.bool, device=m.device)])
-    pid = pid.masked_fill(flag[torch.where(pid >= 0, pid, P).long()], -1)
+    pid = pid.masked_fill(gather_rows(ghost, pid, blk), -1)
     return pid, fuse_row, ghost, delta, fuse.sum()
 
 
 def _global_ba_program(kf_pose: torch.Tensor, pt_xyz: torch.Tensor,
-                       point_id: torch.Tensor, m: smap.MapState, cfg: SLAMConfig):
+                       point_id: torch.Tensor, m: smap.MapState, cfg: SLAMConfig,
+                       blk: Block | None = None):
     """BA over the newest `global_ba_window` keyframes after an accepted
     loop (ORB-SLAM3's GlobalBundleAdjustment, bounded), on the pose-graph
     state and the fused observation graph, the oldest valid keyframe of the
@@ -282,7 +304,7 @@ def _global_ba_program(kf_pose: torch.Tensor, pt_xyz: torch.Tensor,
     kf_win_in = kf_pose[idx]
     res = ba_mod._windowed_single(
         kf_win_in, wvalid, pt_xyz, m.kp_uv[idx], m.kp_pts[idx][..., 2], point_id[idx],
-        m.kp_ok[idx] & wvalid[:, None], cfg.camera, gcfg, free,
+        m.kp_ok[idx] & wvalid[:, None], cfg.camera, gcfg, free, blk=blk,
     )
     pt_finite = torch.isfinite(res.pt_xyz).all(dim=-1)
     move = torch.linalg.norm(res.kf_pose[:, :3, 3] - kf_win_in[:, :3, 3], dim=-1)
@@ -299,17 +321,19 @@ def _global_ba_program(kf_pose: torch.Tensor, pt_xyz: torch.Tensor,
 
 def backend_pass(m: smap.MapState, edges: pg_mod.EdgeList, n_edges: torch.Tensor,
                  kf_idx: int, cfg: SLAMConfig, n_kf: int = -1,
-                 allow_loop: bool = True) -> BackendResult:
+                 allow_loop: bool = True, blk: Block | None = None) -> BackendResult:
     """One backend iteration on a map snapshot: local BA, then a loop
     attempt (candidate, verification, consistency gate, pose graph), then,
     after an accepted loop, landmark fusion and the global BA. Pure in the
     snapshot; the caller merges the result. `n_kf` is the host-mirrored
-    keyframe count; -1 reads it from the device."""
+    keyframe count; -1 reads it from the device. With `blk` (`m` holding
+    this rank's block of the point table), every rank of the group calls
+    it alike and gets its block of the result."""
     t0 = time.monotonic()
     if n_kf < 0:
         n_kf = int(m.n_kf)
     kf_pose, pt_xyz, pt_adjusted, T_rel, s = _backend_step(
-        m, edges, n_edges, kf_idx, allow_loop, cfg, run_ba=n_kf >= 3)
+        m, edges, n_edges, kf_idx, allow_loop, cfg, run_ba=n_kf >= 3, blk=blk)
     global_rmse = -1.0
     fuse_row = pt_invalidate = nobs_delta = None
     n_fused = 0
@@ -318,11 +342,11 @@ def backend_pass(m: smap.MapState, edges: pg_mod.EdgeList, n_edges: torch.Tensor
         # refinement: the two ends share no observations until the query's
         # verified matches are re-pointed at the candidate's landmarks
         pid_fused, fuse_row, pt_invalidate, nobs_delta, nf = _loop_fuse_program(
-            m, kf_idx, int(s[4]), T_rel)
+            m, kf_idx, int(s[4]), T_rel, blk)
         n_fused = int(nf)
         if cfg.ba.global_ba_iters > 0 and n_kf >= 3:
             kf_pose, pt_xyz, g_solved, g_rmse, g_ok, g_move = _global_ba_program(
-                kf_pose, pt_xyz, pid_fused, m, cfg)
+                kf_pose, pt_xyz, pid_fused, m, cfg, blk)
             pt_adjusted = pt_adjusted | g_solved
             rmse, applied, move = torch.stack(
                 [g_rmse, g_ok.to(torch.float32), g_move]).tolist()

@@ -278,14 +278,11 @@ class RuntimeConfig:
     health_check_grace_s: float = 1.0
     checkpoint_every_kf: int = 16
     metrics_every_frames: int = 30
-    # Decision-pipeline depth: per-frame control scalars are fetched via
-    # an async device->host copy and resolved as soon as they LAND (zero
-    # blocking in steady state); a frame's decisions are forced (blocking)
-    # only once this many frames are in flight. On a local device the
-    # copy lands within a frame; over a high-latency link the lag
-    # self-tunes up to this bound. 12 frames rides out a keyframe burst
-    # (features + insert + backend pass) without blocking the frontend; stale keyframe decisions from the deeper
-    # pipeline are suppressed by the session's fresh-reference gate.
+    # Decision-pipeline depth of the JAX package's session: a frame's
+    # control scalars resolve once their copy has landed, or when this many
+    # frames are in flight (a bound for a high-latency link). Kept for the
+    # configuration format; the port's session, whose devices are local,
+    # resolves every frame's decisions at the next call.
     max_decision_lag: int = 12
 
 

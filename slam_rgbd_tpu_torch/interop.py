@@ -74,6 +74,20 @@ def map_from_numpy(src, device) -> MapState:
     return _fields_from(MapState, src, device)
 
 
+def map_block_from_numpy(src, blk, device) -> MapState:
+    """`map_from_numpy` of this rank's map block: every per-point field
+    (`pt_*` with a point axis) cut to the rows of `blk` (a
+    `parallel.mesh.Block`), the rest whole, as the map-block sharded
+    session holds it."""
+    get = src.__getitem__ if isinstance(src, dict) else (lambda k: getattr(src, k))
+    rows = slice(blk.start, blk.start + blk.size)
+    cut = {}
+    for f in dataclasses.fields(MapState):
+        a = np.asarray(get(f.name))
+        cut[f.name] = a[rows] if f.name.startswith("pt_") and a.ndim >= 1 else a
+    return map_from_numpy(cut, device)
+
+
 def map_to_numpy(m: MapState) -> dict:
     """Every `MapState` field as a numpy array, by field name."""
     return {f.name: getattr(m, f.name).cpu().numpy()
@@ -116,9 +130,10 @@ def state_from_numpy(session, *, T_world, motion, last_kf_T, prev_pyr=None,
     def pose(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
-    session.T_world = pose(T_world)
-    session.motion = pose(motion)
-    session.last_kf_T = pose(last_kf_T)
+    # in place: a session's pose state is static (its frame graph reads it)
+    session.T_world.copy_(pose(T_world))
+    session.motion.copy_(pose(motion))
+    session.last_kf_T.copy_(pose(last_kf_T))
     if prev_pyr is not None:
         session.prev_pyr = pyramid_from_numpy(prev_pyr, dev)
     n = len(traj_ts)

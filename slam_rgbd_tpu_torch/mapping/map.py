@@ -16,6 +16,17 @@ Unlike the reference's immutable pytree, `insert_keyframe` writes the
 keyframe's rows of the per-keyframe arrays in place (the descriptor store is
 64 MB at full capacity) and returns a state that shares them: the state
 passed in must not be used afterwards. The per-point arrays are made anew.
+
+Map-block sharding (the reference's `SLAMSession(cfg, mesh=)`, where GSPMD
+partitions the programs over a point table sharded on the `model` axis):
+with a `parallel.mesh.Block` (`blk`), every per-point array (`pt_*`) is this
+rank's block of the table, rows `blk.start ..`, while the keyframe arrays,
+the observation graph (global point ids) and the scalars are whole on every
+rank. Each function that reads or writes the point table then works on its
+block and joins the blocks with the group's collectives: an exact gather of
+rows from their owners (`parallel.mesh.gather_rows`), or a sum of integer
+counts. Every replicated output is the same on every rank and equal bit for
+bit to the unsharded function's. `blk=None` is the whole table.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 from slam_rgbd_tpu_torch.core import se3
 from slam_rgbd_tpu_torch.core.config import KeyframeConfig
 from slam_rgbd_tpu_torch.ops.hamming import gated_match
+from slam_rgbd_tpu_torch.parallel.mesh import Block, all_sum, exclusive_prefix, gather_rows
 
 
 @dataclass
@@ -74,8 +86,15 @@ class MapState:
         return self.kf_pose.device
 
 
-def empty_map(cfg: KeyframeConfig, n_keypoints: int, device) -> MapState:
-    M, P, K = cfg.max_keyframes, cfg.max_map_points, n_keypoints
+def _group(blk: Block | None):
+    return None if blk is None else blk.group
+
+
+def empty_map(cfg: KeyframeConfig, n_keypoints: int, device,
+              blk: Block | None = None) -> MapState:
+    """An empty map; with `blk`, this rank's block of its point table."""
+    M, K = cfg.max_keyframes, n_keypoints
+    P = cfg.max_map_points if blk is None else blk.size
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -146,6 +165,7 @@ def insert_keyframe(
     kp_signs: torch.Tensor,  # (K, 256) int8
     match_pid: torch.Tensor,  # (K,) int32: map-point id each keypoint matched
     #                           to (-1 => spawn a new map point)
+    blk: Block | None = None,
 ) -> MapState:
     """Append a keyframe; register observations; spawn new map points.
 
@@ -157,8 +177,16 @@ def insert_keyframe(
     Where two keypoints observe one map point, the point's descriptor is the
     one of the keypoint with the higher index (the reference's scatter lets
     either win).
+
+    With `blk`, the free slots are taken in the same global order: a
+    block's free slots are the run of that order that starts after the free
+    slots of the blocks before it (one all-gather of the counts), the owner
+    of each spawn contributes its slot (one all-reduce), and each rank
+    writes the rows of its own block.
     """
-    M, K, P = m.capacity_kf, m.kp_uv.shape[1], m.capacity_pt
+    M, K, Pl = m.capacity_kf, m.kp_uv.shape[1], m.capacity_pt
+    P = Pl if blk is None else blk.total
+    start, group = (0, None) if blk is None else (blk.start, blk.group)
     dev = m.device
     i32 = torch.int32
     idx = torch.clamp(m.n_kf, max=M - 1)
@@ -172,9 +200,12 @@ def insert_keyframe(
     # Free-slot recycling: a stable argsort of the validity mask puts invalid
     # slots first in ascending index order; new point r takes free slot r.
     free_slots = torch.argsort(m.pt_valid.to(torch.uint8), stable=True).to(i32)
-    n_free = P - m.pt_valid.sum().to(i32)
+    n_free_here = Pl - m.pt_valid.sum().to(i32)
+    before, n_free = exclusive_prefix(n_free_here, group)
     can_spawn = is_new & (rank < n_free)
-    new_slot = free_slots[torch.clamp(rank, 0, P - 1).long()]
+    mine = can_spawn & (rank >= before) & (rank < before + n_free_here)
+    local_slot = free_slots[torch.clamp(rank - before, 0, Pl - 1).long()] + start
+    new_slot = all_sum(torch.where(mine, local_slot, 0), group)
     pid = torch.where(can_spawn, new_slot, match_pid)  # (K,) final ids
     pid = torch.where(kp_ok & (pid >= 0) & (pid < P), pid, -1)
     n_spawn_dropped = (is_new & ~can_spawn).sum().to(i32)
@@ -182,34 +213,39 @@ def insert_keyframe(
     # world position of this keyframe's keypoints
     pts_world = kp_pts @ T_world_cam[:3, :3].T + T_world_cam[:3, 3]
 
-    # scatter new points (only where can_spawn); index P = dump slot
-    scatter_idx = torch.where(can_spawn, pid, P).long()
-    obs_idx = torch.where(pid >= 0, pid, P).long()  # every observed pid
+    # scatter new points (only where can_spawn); index Pl = dump slot
+    local = pid - start
+    here = (pid >= 0) & (local < Pl) & (local >= 0)  # ids of this block
+    scatter_idx = torch.where(can_spawn & here, local, Pl).long()
+    obs_idx = torch.where(here, local, Pl).long()  # every observed pid
 
     def with_dump(x):
         return torch.cat([x, torch.zeros((1,) + x.shape[1:], dtype=x.dtype, device=dev)])
 
-    pt_xyz = with_dump(m.pt_xyz).index_copy_(0, scatter_idx, pts_world)[:P]
+    pt_xyz = with_dump(m.pt_xyz).index_copy_(0, scatter_idx, pts_world)[:Pl]
     # The representative descriptor refreshes on EVERY observation (newest
     # wins). Among several keypoints on one point the highest index wins:
     # an order-free maximum picks it, then one gather a point.
-    winner = torch.full((P + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
-        0, obs_idx, torch.arange(K, device=dev), reduce="amax")[:P]
+    winner = torch.full((Pl + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, obs_idx, torch.arange(K, device=dev), reduce="amax")[:Pl]
     seen = winner >= 0
     pt_signs = torch.where(seen[:, None], kp_signs[winner.clamp_min(0)], m.pt_signs)
-    spawned = with_dump(torch.zeros_like(m.pt_valid)).index_fill_(0, scatter_idx, True)[:P]
+    spawned = with_dump(torch.zeros_like(m.pt_valid)).index_fill_(0, scatter_idx, True)[:Pl]
     pt_valid = m.pt_valid | spawned
     pt_first_kf = torch.where(spawned, idx, m.pt_first_kf)
     pt_last_kf = torch.where(seen, idx, m.pt_last_kf)
 
     # observation counts: recycled slots restart at zero, then +1 per obs
     pt_nobs = with_dump(torch.where(spawned, 0, m.pt_nobs))
-    pt_nobs = pt_nobs.index_add_(0, obs_idx, torch.ones(K, dtype=i32, device=dev))[:P]
+    pt_nobs = pt_nobs.index_add_(0, obs_idx, torch.ones(K, dtype=i32, device=dev))[:Pl]
 
     # ---- covisibility with existing keyframes -----------------------------
     # shared[m'] = |{j : point_id[m', j] observed by the new keyframe}| via
-    # an indicator over point slots + one gather: O(M*K), not O(M*K^2).
-    ind = torch.cat([seen, torch.zeros(1, dtype=torch.bool, device=dev)])
+    # an indicator over the (global) point ids + one gather: O(M*K), not
+    # O(M*K^2). The ids are on every rank, so the indicator needs no traffic.
+    ind = torch.zeros((P + 1,), dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(pid >= 0, pid, P).long(), True)[:P]
+    ind = torch.cat([ind, torch.zeros(1, dtype=torch.bool, device=dev)])
     gathered = ind[torch.where(m.point_id >= 0, m.point_id, P).long()]  # (M, K)
     shared = torch.where(m.kf_valid, gathered.sum(dim=1).to(i32), 0)  # (M,)
 
@@ -251,7 +287,7 @@ def insert_keyframe(
         pt_nobs=pick(pt_nobs, m.pt_nobs),
         pt_first_kf=pick(pt_first_kf, m.pt_first_kf),
         pt_last_kf=pick(pt_last_kf, m.pt_last_kf),
-        n_pt=pick(pt_valid.sum().to(i32), m.n_pt),
+        n_pt=pick(all_sum(pt_valid.sum().to(i32), group), m.n_pt),
         pt_dropped=m.pt_dropped + n_spawn_dropped * room_i,
         kf_dropped=m.kf_dropped + (1 - room_i),
     )
@@ -348,7 +384,7 @@ def association_ids(d1, i1, d2, i2, max_distance: float, merge_max_distance: flo
 
 
 def cull_points(m: MapState, current_kf_slot, min_obs: int = 2,
-                max_age_kf: int = 3):
+                max_age_kf: int = 3, blk: Block | None = None):
     """Cull under-observed map points; freed slots are recycled on insert.
 
     A point observed fewer than `min_obs` times that has not been
@@ -358,24 +394,25 @@ def cull_points(m: MapState, current_kf_slot, min_obs: int = 2,
 
     Clears `point_id` references to culled points. `covis` keeps its (now
     slightly stale) shared counts. Returns (new_map, n_culled () int32).
+    With `blk`, each rank culls its block, and the references and counts
+    are joined over the group.
     """
-    P = m.capacity_pt
+    group = _group(blk)
     cull = (
         m.pt_valid
         & (m.pt_nobs < min_obs)
         & (current_kf_slot - m.pt_last_kf >= max_age_kf)
     )
-    n_culled = cull.sum().to(torch.int32)
+    n_culled = all_sum(cull.sum().to(torch.int32), group)
     pt_valid = m.pt_valid & ~cull
     # drop observation-graph references to culled points
-    flag = torch.cat([cull, torch.zeros(1, dtype=torch.bool, device=m.device)])
-    ref_culled = flag[torch.where(m.point_id >= 0, m.point_id, P).long()]
+    ref_culled = gather_rows(cull, m.point_id, blk)
     new = dataclasses.replace(
         m,
         pt_valid=pt_valid,
         pt_nobs=torch.where(cull, 0, m.pt_nobs),
         point_id=m.point_id.masked_fill(ref_culled, -1),
-        n_pt=pt_valid.sum().to(torch.int32),
+        n_pt=all_sum(pt_valid.sum().to(torch.int32), group),
     )
     return new, n_culled
 
@@ -393,6 +430,7 @@ def local_window(m: MapState, window: int):
     return torch.clamp(idx, 0, m.capacity_kf - 1), valid
 
 
-def map_point_count(m: MapState) -> torch.Tensor:
-    """Number of valid map points, a () tensor on the map's device."""
-    return m.pt_valid.sum()
+def map_point_count(m: MapState, blk: Block | None = None) -> torch.Tensor:
+    """Number of valid map points, a () tensor on the map's device (with
+    `blk`, summed over the blocks)."""
+    return all_sum(m.pt_valid.sum(), _group(blk))

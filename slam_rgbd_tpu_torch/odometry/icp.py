@@ -30,6 +30,7 @@ the device and returns.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -184,8 +185,10 @@ def icp_align(
         shared = [x.expand((n_hyp,) + x.shape) for x in planes[k0]]
         Ts, inl, sq = _run_level(
             cands, None, None, k0, levels, src_pyr[k0]["vertices"], *shared, cam, cfg)
-        best = torch.argmax(inl)
-        T, inliers, sq_sum = Ts[best], inl[best], sq[best]
+        # index_select, not indexing by a 0-dim tensor, which reads the
+        # index back to the host
+        best = torch.argmax(inl).reshape(1)
+        T, inliers, sq_sum = (x.index_select(0, best)[0] for x in (Ts, inl, sq))
     else:
         T, inliers, sq_sum = _run_level(
             T_init, None, None, k0, levels, src_pyr[k0]["vertices"], *planes[k0],
@@ -262,6 +265,13 @@ def icp_align_batched(
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _drift_twist(xi: tuple, device: torch.device) -> torch.Tensor:
+    """The injected drift twist on `device`, made once: a copy from the host
+    inside a captured frame would not be captured."""
+    return torch.tensor(xi, dtype=torch.float32).to(device)
+
+
 def track_frame_batched(
     prev_pyr: tuple,
     curr_pyr: tuple,
@@ -278,7 +288,7 @@ def track_frame_batched(
     eye = torch.eye(4, dtype=res.T.dtype, device=res.T.device)
     T_rel = torch.where(ok_step[:, None, None], res.T, eye)
     if cfg.drift_xi:  # fault injection (see ICPConfig.drift_xi)
-        xi = torch.tensor(cfg.drift_xi, dtype=torch.float32).to(res.T.device)
+        xi = _drift_twist(cfg.drift_xi, res.T.device)
         T_rel = se3.normalize_rotation(T_rel @ se3.exp(xi))
     res = res._replace(
         T=T_rel, valid_fraction=torch.where(ok_step, res.valid_fraction, 0.0)
@@ -307,7 +317,7 @@ def track_frame(
     eye = torch.eye(4, dtype=res.T.dtype, device=res.T.device)
     T_rel = torch.where(ok_step, res.T, eye)
     if cfg.drift_xi:  # fault injection (see ICPConfig.drift_xi)
-        xi = torch.tensor(cfg.drift_xi, dtype=torch.float32).to(res.T.device)
+        xi = _drift_twist(cfg.drift_xi, res.T.device)
         T_rel = se3.normalize_rotation(T_rel @ se3.exp(xi))
     res = res._replace(
         T=T_rel, valid_fraction=torch.where(ok_step, res.valid_fraction, 0.0)

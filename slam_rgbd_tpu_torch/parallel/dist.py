@@ -23,6 +23,10 @@ rank's block (`mesh.gather` puts the blocks together).
     with the axis's group, the (M, M, 6, 6) blocks all-reduced.
   * `sharded_hamming_match` - query rows over `model`: `hamming_top2` on the
     rank's rows and the ratio test; no traffic.
+  * `sharded_map_match` - map points over `model` in blocks (the map-block
+    sharded session's relocalization): `hamming_top2` over the rank's block
+    of the map, the blocks' (best, second, index) triples merged exactly,
+    and the cross-check on the block.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList, PGResult, optimize_
 from slam_rgbd_tpu_torch.core.config import BAConfig, CameraIntrinsics, ICPConfig
 from slam_rgbd_tpu_torch.mapping.map import association_candidates, association_ids
 from slam_rgbd_tpu_torch.odometry.icp import icp_align_batched
-from slam_rgbd_tpu_torch.ops.hamming import hamming_top2
-from slam_rgbd_tpu_torch.parallel.mesh import gather, shard
+from slam_rgbd_tpu_torch.ops.hamming import Matches, hamming_top2
+from slam_rgbd_tpu_torch.parallel.mesh import Block, gather, gather_rows, shard
 
 
 # --------------------------------------------------------------------- BA
@@ -119,14 +123,18 @@ def sharded_map_association(
     block with the least distance: the lowest global index among equals,
     which is what the unsharded first-index argmin returns. Returns (K,)
     int32 global map-point ids, -1 if unmatched, the same on every rank and
-    equal to `match_against_map` on the whole map.
+    equal to `match_against_map` on the whole map. `mesh=None`: the table
+    is whole, and this is `match_against_map`.
     """
-    base = mesh.get_local_rank(model_axis) * pt_xyz.shape[0]
     d1, i1, d2, i2 = association_candidates(
         pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z, T_world_cam, cam,
         px_radius, z_rel_tol, kp_pts, merge_radius)
-    dist_all = gather(torch.stack([d1, d2])[None], mesh, model_axis)  # (n, 2, K)
-    idx_all = gather(torch.stack([i1, i2])[None] + base, mesh, model_axis)
+    dist_all = torch.stack([d1, d2])[None]  # (n, 2, K)
+    idx_all = torch.stack([i1, i2])[None]
+    if mesh is not None:
+        base = mesh.get_local_rank(model_axis) * pt_xyz.shape[0]
+        dist_all = gather(dist_all, mesh, model_axis)
+        idx_all = gather(idx_all + base, mesh, model_axis)
     which = _first_min(dist_all)[None]  # (1, 2, K): the winning block
     best = dist_all.gather(0, which)[0]
     idx = idx_all.gather(0, which)[0]
@@ -183,3 +191,45 @@ def sharded_hamming_match(
     best, second, idx = hamming_top2(signs1, valid1, signs2, valid2)
     ok = (best < max_distance) & (best < ratio * second) & valid1
     return idx, best, ok
+
+
+def sharded_map_match(
+    blk: Block | None,
+    signs1: torch.Tensor,  # (K1, 256) query descriptors, replicated
+    valid1: torch.Tensor,  # (K1,)
+    signs2: torch.Tensor,  # (P / n, 256): this rank's block of the map
+    valid2: torch.Tensor,  # (P / n,)
+    max_distance: float = 64.0,
+    ratio: float = 0.9,
+) -> Matches:
+    """`features.match.match` (mutual nearest, ratio test) of the query rows
+    against a point table sharded in blocks (`blk`), equal on every rank and
+    to the unsharded match.
+
+    Each rank runs `hamming_top2` on its block (the kernel on CUDA tensors);
+    one all-gather of the blocks' (best, second, first index) follows. The
+    global best is the first block with the least best (the lowest global
+    index among equals, as the unsharded first-index argmin), and the
+    second best is the least of the winner's second and the other blocks'
+    bests: the least over every column but the argmin. The cross-check runs
+    `hamming_top2` the other way on the block's rows (each map point's
+    nearest query row), and the matched points' answers are gathered from
+    their owners. Two launches a rank, as two a call unsharded. `blk=None`:
+    the table is whole, and this is `features.match.match`."""
+    best, second, idx = hamming_top2(signs1, valid1, signs2, valid2)
+    d_all = torch.stack([best, second])[None]  # (n, 2, K1)
+    i_all = idx[None]  # (n, K1)
+    if blk is not None:
+        d_all = gather(d_all, blk.mesh, blk.axis)
+        i_all = gather(i_all + blk.start, blk.mesh, blk.axis)
+    win = _first_min(d_all[:, 0])[None]  # (1, K1): the winning block
+    best_g = d_all[:, 0].gather(0, win)[0]
+    idx_g = i_all.gather(0, win)[0]
+    blocks = torch.arange(d_all.shape[0], device=best.device)[:, None]
+    others = torch.where(blocks == win, float("inf"), d_all[:, 0]).amin(dim=0)
+    second_g = torch.minimum(d_all[:, 1].gather(0, win)[0], others)
+    ok = (best_g < max_distance) & (best_g < ratio * second_g) & valid1
+    rows = torch.arange(signs1.shape[0], device=signs1.device)
+    _, _, idx_rev = hamming_top2(signs2, valid2, signs1, valid1)
+    ok = ok & (gather_rows(idx_rev, idx_g, blk) == rows)
+    return Matches(idx1=rows.to(torch.int32), idx2=idx_g, distance=best_g, valid=ok)

@@ -30,6 +30,7 @@ import datetime
 import os
 import pickle
 import tempfile
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -159,6 +160,84 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+@dataclass(frozen=True)
+class Block:
+    """This rank's block of a table of `total` rows sharded over one mesh
+    axis: rows `start .. start + size - 1`, with the mesh, the axis's
+    process group and this rank's `index` on the axis."""
+
+    mesh: object
+    axis: str
+    start: int
+    size: int
+    total: int
+    group: object
+    index: int
+
+
+def model_block(mesh, total: int, axis: str = "model") -> Block:
+    """This rank's `Block` of a length-`total` table sharded over `axis`."""
+    s = block(total, mesh, axis)
+    return Block(mesh=mesh, axis=axis, start=s.start, size=s.stop - s.start,
+                 total=total, group=mesh.get_group(axis),
+                 index=mesh.get_local_rank(axis))
+
+
+def exclusive_prefix(count: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the sum of `count` over the ranks of `group` before this one, the sum
+    over all of them) for a () integer count: one all-gather. Without a
+    group, (0, count)."""
+    if group is None:
+        return torch.zeros_like(count), count
+    one = count.reshape(1)
+    parts = [torch.empty_like(one) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, one.contiguous(), group=group)
+    counts = torch.cat(parts)
+    rank = dist.get_rank(group)
+    return counts[:rank].sum().to(count.dtype), counts.sum().to(count.dtype)
+
+
+def _sum_exact(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group` of tensors of which at most one rank holds a
+    non-zero entry at each place: integers as they are, booleans and int8
+    widened to int32, float32 summed as its bits (int32), so a value comes
+    through unchanged (a float sum would turn -0.0 into 0.0)."""
+    if x.dtype == torch.float32:
+        return all_sum(x.contiguous().view(torch.int32), group).view(torch.float32)
+    if x.dtype in (torch.bool, torch.int8, torch.uint8):
+        return all_sum(x.to(torch.int32), group).to(x.dtype)
+    return all_sum(x.contiguous(), group)
+
+
+def gather_rows(rows: torch.Tensor, ids: torch.Tensor, blk: Block | None) -> torch.Tensor:
+    """`table[ids]` of a table of which this rank holds the block `rows`
+    (`blk`; None: `rows` is the whole table), with zeros where an id lies
+    outside the table (-1, or the pad index `total`). Each rank looks up
+    the ids in its block and contributes zeros for the others; one
+    all-reduce joins them, exactly (`_sum_exact`). Every rank of the group
+    calls it with the same `ids` and gets the same result."""
+    n = rows.shape[0]
+    local = ids.long() - (0 if blk is None else blk.start)
+    mine = (local >= 0) & (local < n)
+    pad = torch.cat([rows, torch.zeros((1,) + rows.shape[1:], dtype=rows.dtype,
+                                       device=rows.device)])
+    out = pad[torch.where(mine, local, n)]
+    return out if blk is None else _sum_exact(out, blk.group)
+
+
+def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, values: torch.Tensor,
+                 blk: Block | None) -> torch.Tensor:
+    """A copy of this rank's block `rows` with `values[i]` written at the
+    global id `ids[i]` wherever that id lies in the block; no traffic.
+    Ids outside the block, and repeated pad ids, go to a dump row."""
+    n = rows.shape[0]
+    local = ids.long() - (0 if blk is None else blk.start)
+    mine = (local >= 0) & (local < n)
+    pad = torch.cat([rows, torch.zeros((1,) + rows.shape[1:], dtype=rows.dtype,
+                                       device=rows.device)])
+    return pad.index_copy(0, torch.where(mine, local, n), values.to(rows.dtype))[:n]
 
 
 def _rank_main(rank, fn, world_size, tmp, backend, device, threads, args):

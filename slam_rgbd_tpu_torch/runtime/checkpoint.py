@@ -15,6 +15,13 @@ Arrays keep the reference's dtypes (float32 poses and times, int32 counts
 and indices, bool masks; counts are 0-d). A version-1 checkpoint (positional
 `map_{i}` keys, written before `kf_sig` existed) restores with the place
 signatures recomputed from the descriptors.
+
+A map-block sharded session (`SLAMSession(cfg, mesh=)`) checkpoints the
+whole map: `save`, called on every rank of the `model` group, gathers the
+blocks of the point table and the group's first rank writes the files;
+`restore` reads them on every rank and keeps the rows of the rank's block.
+So a checkpoint of a sharded session restores into an unsharded one and the
+other way round.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
+from slam_rgbd_tpu_torch.parallel import mesh as pmesh
 
 if TYPE_CHECKING:  # pragma: no cover
     from slam_rgbd_tpu_torch.runtime.session import SLAMSession
@@ -42,10 +50,19 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _point_field(m, name: str) -> bool:
+    """A field of the point table (sharded in a map-block session)."""
+    return name.startswith("pt_") and getattr(m, name).dim() >= 1
+
+
 def _flatten_state(session: "SLAMSession") -> dict:
     arrays: dict[str, np.ndarray] = {}
+    blk = session._blk
     for name in _fields(session.map):
-        arrays[f"map.{name}"] = _np(getattr(session.map, name))
+        x = getattr(session.map, name)
+        if blk is not None and _point_field(session.map, name):
+            x = pmesh.gather(x, blk.mesh, blk.axis)  # the whole table
+        arrays[f"map.{name}"] = _np(x)
     for i, name in enumerate(_fields(session.edges)):
         arrays[f"edges_{i}"] = _np(getattr(session.edges, name))
     arrays["n_edges"] = _np(session.n_edges)
@@ -60,9 +77,17 @@ def _flatten_state(session: "SLAMSession") -> dict:
 
 
 def save(session: "SLAMSession", path: str) -> None:
-    os.makedirs(path, exist_ok=True)
+    """Write the session's state to directory `path`. A sharded session:
+    every rank of the `model` group calls it with the same path; the
+    group's first rank writes, and every rank returns once it has."""
     session.flush_pipeline()  # the newest frames' decisions first
-    np.savez_compressed(os.path.join(path, "state.npz"), **_flatten_state(session))
+    arrays = _flatten_state(session)
+    blk = session._blk
+    if blk is not None and blk.index != 0:
+        torch.distributed.barrier(group=blk.group)  # the writer is done
+        return
+    os.makedirs(path, exist_ok=True)
+    np.savez_compressed(os.path.join(path, "state.npz"), **arrays)
     meta = {
         "frames": session.state.frames,
         "keyframes": session.state.keyframes,
@@ -73,11 +98,14 @@ def save(session: "SLAMSession", path: str) -> None:
     }
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
+    if blk is not None:
+        torch.distributed.barrier(group=blk.group)
 
 
 def restore(session: "SLAMSession", path: str) -> "SLAMSession":
     """Restore state in place into a freshly built session of the same
-    configuration (capacities must match) and return it."""
+    configuration (capacities must match) and return it. A sharded session
+    keeps its block of the point table."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     dev = session.device
@@ -96,12 +124,17 @@ def restore(session: "SLAMSession", path: str) -> "SLAMSession":
                     f"{len(old_fields)} known fields"
                 )
             named = {name: data[f"map_{i}"] for i, name in enumerate(old_fields)}
+        blk = session._blk
         for name, arr in named.items():
-            want = getattr(session.map, name)
-            if arr.shape != tuple(want.shape):
+            want = tuple(getattr(session.map, name).shape)
+            if blk is not None and _point_field(session.map, name):
+                want = (blk.total,) + want[1:]
+                if arr.shape == want:
+                    named[name] = arr[blk.start: blk.start + blk.size]
+            if arr.shape != want:
                 raise ValueError(
                     f"checkpoint shape mismatch for map.{name}: {arr.shape} vs "
-                    f"{tuple(want.shape)}: config capacities must match"
+                    f"{want}: config capacities must match"
                 )
         session.map = dataclasses.replace(session.map, **{
             name: torch.as_tensor(arr, device=dev) for name, arr in named.items()
@@ -117,18 +150,19 @@ def restore(session: "SLAMSession", path: str) -> "SLAMSession":
             for i, name in enumerate(edge_names)
         })
         session.n_edges = torch.as_tensor(data["n_edges"], device=dev)
-        session.T_world = torch.as_tensor(data["T_world"], device=dev)
-        session.motion = torch.as_tensor(data["motion"], device=dev)
+        # in place: the pose state is static (the frame graph reads it)
+        session.T_world.copy_(torch.as_tensor(data["T_world"], device=dev))
+        session.motion.copy_(torch.as_tensor(data["motion"], device=dev))
         session._restore_traj(data["traj_ts"], data["traj_T"], data["frame_kf_idx"],
                               data["kf_T_at_frame"])
     session.last_kf_idx = int(meta["last_kf_idx"])
     if session.last_kf_idx >= 0:
-        session.last_kf_T = session.map.kf_pose[session.last_kf_idx].clone()
+        session.last_kf_T.copy_(session.map.kf_pose[session.last_kf_idx])
     session.state.frames = meta["frames"]
     session.state.keyframes = meta["keyframes"]
     session.state.loops = meta["loops"]
     session._n_kf_host = meta.get("n_kf", meta["keyframes"])
-    session._pending.clear()
+    session._pending = None
     session._frame_i = meta["frames"]
     session._last_kf_frame_i = -(10 ** 9)
     session.prev_pyr = None  # the next frame anchors the tracking reference

@@ -1,7 +1,6 @@
 """SLAM session: per-frame tracking, keyframes, the backend, relocalization.
 
-Counterpart of `slam_rgbd_tpu/runtime/session.py` (without its `mesh`
-argument, which belongs to the multi-device layer):
+Counterpart of `slam_rgbd_tpu/runtime/session.py`:
 
     frame -> pyramid -> ICP track (dense, every frame)
           -> keyframe decision -> [features -> map match -> insert
@@ -23,13 +22,37 @@ lost frame and then every fourth.
 Decision pipelining as in the reference: frame t queues its tracking and a
 (4,) control summary on the device and starts an asynchronous copy of the
 summary to pinned host memory, marked by a CUDA event. The decisions of
-frame t are applied at the start of a later call, once the event has
-completed, or forced when `runtime.max_decision_lag` frames are in flight.
-Steady-state tracking never waits on the device, and neither does a keyframe
-insert: the host mirrors the keyframe count. A relocalization has one
-blocking fetch (its (4,) stats), and so has the merge of a backend result
-(its guard's three scalars); an inline backend pass has those of
-`backend_pass`.
+frame t are applied at the start of the next call, after that call's frame
+has been uploaded and before it is tracked. The reference applies them once
+the summary has landed, which on a local device is the next call, and
+bounds the lag by `runtime.max_decision_lag` for a high-latency link; a
+card has no such link, so the port waits for the summary instead. The host
+thus runs at most one frame ahead of the card: with the frame graph it
+queues a frame faster than the card runs one, and a decision that waited
+for its summary to land by itself would fall up to the bound behind, where
+the decisions computed before the newest insert resolved are suppressed and
+keyframes thin out. The card idles only while the host resolves and queues
+the replay. A keyframe insert does not wait on the device: the host mirrors
+the keyframe count. A relocalization has one blocking fetch (its (4,)
+stats), and so has the merge of a backend result (its guard's three
+scalars); an inline backend pass has those of `backend_pass`.
+
+On a CUDA device the steady-state frame (pyramid, track, control summary,
+ring writes) is one CUDA graph replay (`runtime.frame_graph.FrameGraph`),
+the counterpart of the reference's single jitted `_steady_step`; the eager
+step is its plain version (the CPU's path, and the card's with
+`cuda_graph=False`). The pose state it reads (`T_world`, `motion`,
+`last_kf_T`) is written in place only.
+
+Map-block sharded mode (`mesh=` with a `model` axis above 1): each rank is
+a process holding its block of the point table (every `pt_*` array; the
+keyframe arrays and the scalars are whole on every rank) and runs the same
+session on the same frames. The association, insert, cull, relocalization,
+backend pass, merge and point count join the blocks over the `model` group
+(`mapping.map`, `parallel.dist`), exactly, so every rank makes the same
+decisions and the result equals the unsharded session's bit for bit. Each
+rank resolves a frame at the next call, as the unsharded session does; the
+backend runs inline.
 
 Frames from the host (numpy arrays) go up through a ring of pinned buffers
 (`runtime.staging.PinnedStaging`) without waiting for the device; frames
@@ -51,7 +74,6 @@ after every cooldown.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import logging
 import time
@@ -69,11 +91,13 @@ from slam_rgbd_tpu_torch.core.config import (
 )
 from slam_rgbd_tpu_torch.eval.trajectory import save_trajectory_tum
 from slam_rgbd_tpu_torch.features import detect as fdetect
-from slam_rgbd_tpu_torch.features import match as fmatch
 from slam_rgbd_tpu_torch.features import orb as forb
 from slam_rgbd_tpu_torch.features.pose3d import solve_pose3d
 from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame
+from slam_rgbd_tpu_torch.parallel import dist as pdist
+from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+from slam_rgbd_tpu_torch.runtime.frame_graph import FrameGraph
 from slam_rgbd_tpu_torch.runtime.profiling import StageTimer
 from slam_rgbd_tpu_torch.runtime.staging import PinnedStaging, upload_plain
 
@@ -112,44 +136,48 @@ def _frame_summary(T_world, last_kf_T, valid_fraction, rmse,
 
 def _steady_step(
     prev_pyr, depth_raw, rgb, T_world, motion, last_kf_T,
-    buf_T, buf_kfT, traj_i: int,
+    buf_T, buf_kfT, traj_i: torch.Tensor,
     cam: CameraIntrinsics, icp_cfg: ICPConfig, kcfg: KeyframeConfig,
 ):
     """One steady-state frame: pyramid, coarse-to-fine track, control
-    summary, and the trajectory-ring writes (in place, as the reference
-    donates its ring buffers)."""
+    summary, and the trajectory-ring writes at the device scalar `traj_i`
+    (in place, as the reference donates its ring buffers and traces the
+    slot). -> (pyramid, new T_world, new motion, summary)."""
     pyr = camera.build_frame_pyramid(depth_raw, cam, levels=icp_cfg.levels, rgb=rgb)
     T_world, motion, res = track_frame(prev_pyr, pyr, T_world, motion, cam, icp_cfg)
     summary = _frame_summary(T_world, last_kf_T, res.valid_fraction, res.rmse, kcfg)
-    buf_T[traj_i] = T_world
-    buf_kfT[traj_i] = last_kf_T
-    return pyr, T_world, motion, summary, buf_T, buf_kfT
+    slot = traj_i.reshape(1)
+    buf_T.index_copy_(0, slot, T_world[None])
+    buf_kfT.index_copy_(0, slot, last_kf_T[None])
+    return pyr, T_world, motion, summary
 
 
 def _kf_insert(m, edges, n_edges, kp_uv, signs, pts, ok, T_pose, ts,
-               prev_kf_idx: int, kf_idx: int, cfg: SLAMConfig):
+               prev_kf_idx: int, kf_idx: int, cfg: SLAMConfig, blk=None):
     """The keyframe-insert device stage: map association (two-tier gated
     match at the keyframe's own pose), keyframe / point insertion, the
     odometry edge, and point culling. Nothing is read back to the host.
 
     `prev_kf_idx < 0` (the bootstrap keyframe) has no map to match against
     and no edge to add; both indices are host integers, so that is a host
-    branch.
+    branch. With `blk` (`m` holding this rank's block of the point table),
+    the association joins the blocks' winners
+    (`parallel.dist.sharded_map_association`) and the insert and cull work
+    on the block.
     """
     kcfg = cfg.keyframes
     has_map = prev_kf_idx >= 0
     if has_map:
-        match_pid = smap.match_against_map(
-            m, signs, ok, kp_uv, pts[:, 2], T_pose,
-            cam=cfg.camera,
-            max_distance=float(cfg.orb.match_threshold),
-            kp_pts=pts,
-            merge_radius=kcfg.merge_radius,
+        match_pid = pdist.sharded_map_association(
+            None if blk is None else blk.mesh, signs, ok, kp_uv, pts[:, 2], T_pose,
+            m.pt_xyz, m.pt_signs, m.pt_valid, cfg.camera,
+            max_distance=float(cfg.orb.match_threshold), kp_pts=pts,
+            merge_radius=kcfg.merge_radius, model_axis=cfg.mesh.model_axis,
         )
     else:
         match_pid = torch.full((signs.shape[0],), -1, dtype=torch.int32,
                                device=signs.device)
-    m = smap.insert_keyframe(m, T_pose, ts, kp_uv, pts, ok, signs, match_pid)
+    m = smap.insert_keyframe(m, T_pose, ts, kp_uv, pts, ok, signs, match_pid, blk=blk)
     last_kf_T = m.kf_pose[kf_idx].clone()
 
     if has_map:
@@ -161,20 +189,21 @@ def _kf_insert(m, edges, n_edges, kp_uv, signs, pts, ok, T_pose, ts,
     if kcfg.cull_min_obs > 0:
         m, n_culled = smap.cull_points(
             m, kf_idx, min_obs=kcfg.cull_min_obs, max_age_kf=kcfg.cull_max_age_kf,
+            blk=blk,
         )
     return m, edges, n_edges, last_kf_T, n_culled
 
 
-def _reloc(m, signs, ok, pts, T_est, cfg: SLAMConfig, generator=None):
+def _reloc(m, signs, ok, pts, T_est, cfg: SLAMConfig, generator=None, blk=None):
     """The relocalization solve: map-wide descriptor match, robust 3D-3D
     solve, consensus gate, and the implied rigid correction
     C = T_fixed T_est^-1. -> (T_fixed, C, stats (4,) = [accept, inliers,
-    n_valid, |t(C)|]), all on the device."""
-    mt = fmatch.match(
-        signs, ok, m.pt_signs, m.pt_valid,
-        max_distance=float(cfg.orb.match_threshold),
-    )
-    target = m.pt_xyz[mt.idx2.long()]
+    n_valid, |t(C)|]), all on the device. With `blk`, the match runs over
+    the map's blocks and the matched points are gathered from their
+    owners."""
+    mt = pdist.sharded_map_match(blk, signs, ok, m.pt_signs, m.pt_valid,
+                                 max_distance=float(cfg.orb.match_threshold))
+    target = pmesh.gather_rows(m.pt_xyz, mt.idx2, blk)
     res = solve_pose3d(pts, target, mt.valid & ok, iters=8, generator=generator)
     # consensus gate: a relocalization that explains under half of its own
     # matches is an aliased solution (repeated texture)
@@ -190,7 +219,8 @@ def _reloc(m, signs, ok, pts, T_est, cfg: SLAMConfig, generator=None):
     return T_fixed, C, stats
 
 
-def _fuse_merge(m, snap: int, cand: int, fuse_row, ghost, delta, n_fused: int):
+def _fuse_merge(m, snap: int, cand: int, fuse_row, ghost, delta, n_fused: int,
+                blk=None):
     """Merge a loop's landmark fusion (`backend.worker._loop_fuse_program`)
     into the live map: re-point the query keyframe's observation row, clear
     every reference to a ghost duplicate (keyframes inserted after the
@@ -198,13 +228,11 @@ def _fuse_merge(m, snap: int, cand: int, fuse_row, ghost, delta, n_fused: int):
     update the observation counts, and count the fused observations into
     the pair's covisibility, which retires the pair from
     `find_loop_candidate`. Clearing rather than re-pointing the ghost
-    references is the reference's behaviour, kept as it is."""
-    P = m.capacity_pt
-    dev = m.device
+    references is the reference's behaviour, kept as it is. With `blk`,
+    `ghost` and `delta` are this rank's block."""
     pid = m.point_id.clone()
     pid[snap] = fuse_row
-    flag = torch.cat([ghost, torch.zeros(1, dtype=torch.bool, device=dev)])
-    pid = pid.masked_fill(flag[torch.where(pid >= 0, pid, P).long()], -1)
+    pid = pid.masked_fill(pmesh.gather_rows(ghost, pid, blk), -1)
     pt_valid = m.pt_valid & ~ghost
     nobs = torch.where(ghost, 0, torch.clamp_min(m.pt_nobs + delta, 0))
     covis = m.covis.clone()
@@ -212,7 +240,9 @@ def _fuse_merge(m, snap: int, cand: int, fuse_row, ghost, delta, n_fused: int):
     covis[cand, snap] += n_fused
     return dataclasses.replace(
         m, point_id=pid, pt_valid=pt_valid, pt_nobs=nobs,
-        n_pt=pt_valid.sum().to(torch.int32), covis=covis,
+        n_pt=pmesh.all_sum(pt_valid.sum().to(torch.int32),
+                           None if blk is None else blk.group),
+        covis=covis,
     )
 
 
@@ -267,9 +297,6 @@ class _PendingFrame:
     # correction onto it
     T: torch.Tensor
 
-    def ready(self) -> bool:
-        return self.event is None or self.event.query()
-
     def values(self) -> list:
         if self.event is not None:
             self.event.synchronize()
@@ -307,33 +334,84 @@ class SLAMSession:
     `sync_backend()`) to drain it. `metrics`: an optional
     `runtime.profiling.MetricsLog` for the `frame_window` and `backend`
     records.
+
+    `cuda_graph`: run the steady-state frame as a CUDA graph replay (the
+    default on a CUDA device; True on the CPU raises); False runs the eager
+    step. `mesh`: a `torch.distributed` `DeviceMesh` (`parallel.mesh.
+    make_mesh`); with a `model` axis above 1 the session holds this rank's
+    block of the point table, and every rank of the axis must drive its
+    session with the same frames and calls (map-block sharded mode). A mesh
+    without a `model` axis, or with one of size 1, is the unsharded path.
     """
 
+    # rows of the trajectory ring at the start; it doubles when full
+    traj_capacity = 4096
+
     def __init__(self, config: SLAMConfig, async_backend: bool = False,
-                 device="cuda", metrics=None):
+                 device="cuda", metrics=None, mesh=None, cuda_graph=None):
         self.cfg = config
         self.device = _resolve_device(device)
         self.metrics = metrics
-        self.timer = StageTimer()
-        # host frames: the plain copy on the CPU; on a card a pinned ring
-        # with a slot a frame in flight. The host runs at most
-        # `max_decision_lag` frames ahead before a decision blocks, so a slot
-        # wait never blocks earlier than the decision pipeline would.
+        self.mesh = mesh
+        self._blk = None
+        axis = config.mesh.model_axis
+        if (mesh is not None and axis in (mesh.mesh_dim_names or ())
+                and mesh.size(mesh.mesh_dim_names.index(axis)) > 1):
+            if async_backend:
+                raise NotImplementedError(
+                    "SLAMSession(async_backend=True) with a model axis above 1: the "
+                    "threaded map-block sharded session is ROADMAP.md item 9c (the "
+                    "worker's collectives need a process group of their own, and "
+                    "merges and job drops must be agreed across ranks); use the "
+                    "inline backend")
+            self._blk = pmesh.model_block(mesh, config.keyframes.max_map_points, axis)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        elif cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs a CUDA device, not {self.device}")
+        self._graph = FrameGraph(self.device) if cuda_graph else None
+        # host frames: the plain copy on the CPU; on a card a ring of two
+        # pinned slots, one for the pending frame and one for the frame
+        # uploaded before it resolves
         self._staging = None
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-            self._staging = PinnedStaging(
-                self.device, n_slots=config.runtime.max_decision_lag + 1)
+            self._staging = PinnedStaging(self.device, n_slots=2)
+        self.async_backend = async_backend
+        self.worker = None
+        # the pose state and the trajectory ring (pose and reference-keyframe
+        # pose per frame, fetched once in `poses()`, and the slot of the
+        # frame being tracked): static tensors, written in place only (the
+        # frame graph reads them), set by `_fresh`
+        self.T_world, self.motion, self.last_kf_T = (
+            torch.empty((4, 4), device=self.device) for _ in range(3))
+        self._traj_cap = self.traj_capacity
+        self._traj_T = torch.empty((self._traj_cap, 4, 4), device=self.device)
+        self._traj_kfT = torch.empty_like(self._traj_T)
+        self._traj_i = torch.empty((), dtype=torch.int64, device=self.device)
+        self._fresh()
+
+    def _fresh(self):
+        """A fresh session's state: the map, the edges, the host-side
+        bookkeeping and the backend worker anew, the static tensors set in
+        place."""
+        cfg = self.cfg
+        self.timer = StageTimer()
         self.state = SessionState()
         self.stats: list[FrameStats] = []
-        self.map = smap.empty_map(config.keyframes, self._kp_capacity(), self.device)
-        self.edges = EdgeList.empty(4 * config.keyframes.max_keyframes, self.device)
+        self.map = smap.empty_map(cfg.keyframes, self._kp_capacity(), self.device,
+                                  self._blk)
+        self.edges = EdgeList.empty(4 * cfg.keyframes.max_keyframes, self.device)
         self.n_edges = torch.zeros((), dtype=torch.int32, device=self.device)
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
-        self.T_world = eye
-        self.motion = eye
-        self.last_kf_T = eye
+        for T in (self.T_world, self.motion, self.last_kf_T):
+            T.copy_(eye)
+        self._traj_T.zero_()
+        self._traj_kfT.zero_()
+        self._traj_i.zero_()
+        self._traj_ts: list[float] = []
+        self._frame_kf_idx: list[int] = []  # reference keyframe slot per frame
         self.last_kf_idx = -1
         self.prev_pyr = None
         # Host mirror of the map's keyframe count: insertion drops at
@@ -344,23 +422,12 @@ class SLAMSession:
         # the 1st and then every 4th (it has a blocking fetch, and the
         # odometry fallback is usually within centimetres anyway).
         self._lost_streak = 0
-        self._pending: collections.deque[_PendingFrame] = collections.deque()
+        self._pending: Optional[_PendingFrame] = None  # the previous frame
         self._frame_i = 0
         self._last_kf_frame_i = -(10 ** 9)
-        # frames dispatched before the newest keyframe resolved carry a
-        # decision against the old reference pose; theirs are suppressed
-        self._kf_ref_fresh_from = 0
-        # device-side trajectory ring: pose and reference-keyframe pose per
-        # frame, fetched once in `poses()`
-        self._traj_ts: list[float] = []
-        self._frame_kf_idx: list[int] = []  # reference keyframe slot per frame
-        self._traj_cap = 4096
-        self._traj_T = torch.zeros((self._traj_cap, 4, 4), device=self.device)
-        self._traj_kfT = torch.zeros((self._traj_cap, 4, 4), device=self.device)
         # the backend: inline, or on the worker thread
-        self.async_backend = async_backend
-        self.worker = (bworker.BackendWorker(config, self.device)
-                       if async_backend else None)
+        self.worker = (bworker.BackendWorker(cfg, self.device)
+                       if self.async_backend else None)
         self._last_loop_kf = -(10 ** 9)
         # Loop-merge generation: bumped when a loop-closure result merges
         # (the pose graph rewrites every keyframe). Jobs are stamped with it;
@@ -380,20 +447,22 @@ class SLAMSession:
         step, the keyframe insert with and without a map, the
         relocalization solve (whose batched SVD loads a solver library at
         first use), the trajectory correction, a backend merge, and on a
-        card the pinned ring of host frames at the camera's shape. Must run
-        on a fresh session; ends with `reset()`.
+        card the pinned ring of host frames at the camera's shape and the
+        capture of the frame graph (both kept by `reset()`). Must run on a
+        fresh session; ends with `reset()`.
         """
         cfg = self.cfg
         cam = cfg.camera
         eye = torch.eye(4, device=self.device)
+        blk = self._blk
         for n_kf in (0, 3):
             bworker.backend_pass(self.map, self.edges, self.n_edges, 0, cfg,
-                                 n_kf=n_kf, allow_loop=True)
-        pid, row, ghost, delta, _ = bworker._loop_fuse_program(self.map, 0, 0, eye)
-        _fuse_merge(self.map, 0, 0, row, ghost, delta, 0)
+                                 n_kf=n_kf, allow_loop=True, blk=blk)
+        pid, row, ghost, delta, _ = bworker._loop_fuse_program(self.map, 0, 0, eye, blk)
+        _fuse_merge(self.map, 0, 0, row, ghost, delta, 0, blk)
         if cfg.ba.global_ba_iters > 0:
             bworker._global_ba_program(self.map.kf_pose, self.map.pt_xyz, pid,
-                                       self.map, cfg)
+                                       self.map, cfg, blk)
         self.edges.add(self.n_edges, 0, 1, eye, 5.0)
         # a textured sloped plane: valid geometry and FAST corners
         yy, xx = np.meshgrid(np.arange(cam.height), np.arange(cam.width), indexing="ij")
@@ -404,7 +473,7 @@ class SLAMSession:
         ).copy()
         depth_t, rgb_t = self._upload(depth), self._upload(rgb)
         self.process_frame(0.0, depth_t, rgb_t)  # bootstrap keyframe
-        self.process_frame(1.0 / 30, depth_t, rgb_t)  # steady step
+        self.process_frame(1.0 / 30, depth_t, rgb_t)  # steady step (+ its capture)
         self.flush_pipeline()
         # keyframes against an existing map: association + merge tiers; the
         # third makes the backend pass run its BA
@@ -446,8 +515,12 @@ class SLAMSession:
     # ---------------------------------------------------------- main loop
     def process_frame(self, ts: float, depth_raw, rgb) -> FrameStats:
         """Track one frame (depth in sensor units, RGB uint8), after
-        resolving the decisions of earlier frames that have landed."""
+        resolving the previous frame's decisions."""
         t0 = time.monotonic()
+        # this frame goes up first, so that its copy is queued while the
+        # host waits for the previous frame's summary
+        depth_t = self._upload(depth_raw)
+        rgb_t = self._upload(rgb)
         if self.worker is not None:
             # merge finished backend work first: a snapshot then holds every
             # earlier correction. `advance` promotes a waiting job after the
@@ -458,19 +531,16 @@ class SLAMSession:
             if self._deferred_job is not None:
                 job, self._deferred_job = self._deferred_job, None
                 self.worker.submit(job)
-        self._drain_pending(
-            block=len(self._pending) >= self.cfg.runtime.max_decision_lag
-        )
-        depth_t = self._upload(depth_raw)
-        rgb_t = self._upload(rgb)
+        self.flush_pipeline()  # the previous frame's decisions
 
         if self.prev_pyr is None:
             # first frame: bootstrap a keyframe at the current pose, unless
             # state was loaded into the session, where only the tracking
             # reference needs anchoring
-            self.prev_pyr = camera.build_frame_pyramid(
+            pyr = camera.build_frame_pyramid(
                 depth_t, self.cfg.camera, levels=self.cfg.icp.levels, rgb=rgb_t
             )
+            self.prev_pyr = pyr if self._graph is None else self._graph.adopt_pyramid(pyr)
             st = FrameStats(ts, 0.0, 1.0, 0.0, True, True)
             if self._n_kf_host == 0:
                 self._last_kf_frame_i = self._frame_i
@@ -481,22 +551,38 @@ class SLAMSession:
 
         traj_i = len(self._traj_ts)
         if traj_i >= self._traj_cap:
-            self._grow_traj_ring()
-        (self.prev_pyr, self.T_world, self.motion, summary,
-         self._traj_T, self._traj_kfT) = _steady_step(
-            self.prev_pyr, depth_t, rgb_t, self.T_world, self.motion,
-            self.last_kf_T, self._traj_T, self._traj_kfT, traj_i,
-            self.cfg.camera, self.cfg.icp, self.cfg.keyframes,
-        )
+            self._grow_traj_ring()  # (the graph is captured again)
+        self._traj_i.fill_(traj_i)
+        if self._graph is None:
+            self.prev_pyr, T, motion, summary = self._step(self.prev_pyr, depth_t, rgb_t)
+            self.T_world.copy_(T)
+            self.motion.copy_(motion)
+        else:
+            # the frame's own depth / rgb are copied into the graph's input,
+            # and its pose cloned after the replay: later replays overwrite
+            # neither
+            summary = self._graph.run(
+                self._step, (depth_t, rgb_t), (self.T_world, self.motion, self.last_kf_T),
+                (self._traj_T, self._traj_kfT), self._traj_i, self.prev_pyr)
+            T = self.T_world.clone()
         self._traj_ts.append(ts)
         self._frame_kf_idx.append(self.last_kf_idx)
         st = FrameStats(ts, 0.0, -1.0, -1.0, False, True)  # until it lands
-        self._pending.append(_PendingFrame(
+        self._pending = _PendingFrame(
             *self._fetch_async(summary), st=st, ts=ts, depth_raw=depth_t,
-            rgb=rgb_t, traj_i=traj_i, frame_i=self._frame_i, T=self.T_world,
-        ))
+            rgb=rgb_t, traj_i=traj_i, frame_i=self._frame_i, T=T,
+        )
         self._frame_i += 1
         return self._finish(st, t0)
+
+    def _step(self, prev_pyr, depth_t, rgb_t):
+        """The eager steady-state frame on the session's state (what the
+        frame graph captures): -> (pyramid, T_world, motion, summary)."""
+        return _steady_step(
+            prev_pyr, depth_t, rgb_t, self.T_world, self.motion, self.last_kf_T,
+            self._traj_T, self._traj_kfT, self._traj_i,
+            self.cfg.camera, self.cfg.icp, self.cfg.keyframes,
+        )
 
     def _fetch_async(self, summary: torch.Tensor):
         """Start the summary's copy to the host; (host tensor, event)."""
@@ -508,15 +594,6 @@ class SLAMSession:
         event.record(torch.cuda.current_stream(self.device))
         return host, event
 
-    def _drain_pending(self, block: bool = False):
-        """Resolve every frame whose summary has landed, and (when `block`)
-        the oldest one regardless."""
-        while self._pending:
-            if not block and not self._pending[0].ready():
-                return
-            block = False
-            self._resolve_entry(self._pending.popleft())
-
     def _resolve_entry(self, e: _PendingFrame):
         """Apply one frame's control decisions."""
         vf, rmse, finite, should = e.values()
@@ -524,7 +601,6 @@ class SLAMSession:
         e.st.icp_rmse = rmse
         e.st.tracking_ok = vf > 0.25 and finite > 0.5
 
-        force_insert = False
         if not e.st.tracking_ok:
             self.state.lost += 1
             self._lost_streak += 1
@@ -543,17 +619,13 @@ class SLAMSession:
                 self.state.relocalized += 1
                 e.st.tracking_ok = True
                 self._lost_streak = 0
-                self.motion = torch.eye(4, device=self.device)
+                self.motion.copy_(torch.eye(4, device=self.device))
                 # rigid correction from the lost frame's estimate; applies
-                # to the live pose, every frame logged since, and every
-                # still-pending estimate (they all inherited the bad pose)
+                # to the live pose and the frame's logged one
                 e.T = T_fixed
-                self.T_world = se3.normalize_rotation(C @ self.T_world)
+                self.T_world.copy_(se3.normalize_rotation(C @ self.T_world))
                 _traj_correct(self._traj_T, e.traj_i, C)
-                for later in self._pending:
-                    later.T = C @ later.T
                 should = 1.0 if self._should_insert(vf) else 0.0
-                force_insert = should > 0.5  # decision is already fresh
             # on a failed reloc we keep integrating (odometry-only fallback)
         else:
             self._lost_streak = 0
@@ -562,10 +634,7 @@ class SLAMSession:
             e.frame_i - self._last_kf_frame_i
             >= self.cfg.keyframes.kf_min_gap_frames
         )
-        # a decision computed against a stale reference pose (dispatched
-        # before the newest insert resolved) is suppressed
-        fresh = e.frame_i >= self._kf_ref_fresh_from or force_insert
-        if e.st.tracking_ok and should > 0.5 and gap_ok and fresh:
+        if e.st.tracking_ok and should > 0.5 and gap_ok:
             e.st.is_keyframe = True
             self._last_kf_frame_i = e.frame_i
             kf_stats = self._keyframe(e.ts, e.depth_raw, e.rgb, e.T)
@@ -598,16 +667,13 @@ class SLAMSession:
         kp, desc, pts, ok = self._features(depth_t, rgb_t)
         prev_kf_idx = self.last_kf_idx
         kf_idx = self._n_kf_host
-        (self.map, self.edges, self.n_edges, self.last_kf_T,
-         _n_culled) = _kf_insert(
+        self.map, self.edges, self.n_edges, last_kf_T, _n_culled = _kf_insert(
             self.map, self.edges, self.n_edges, kp.uv, desc.signs, pts, ok,
-            T_pose, float(ts), prev_kf_idx, kf_idx, self.cfg,
+            T_pose, float(ts), prev_kf_idx, kf_idx, self.cfg, self._blk,
         )
+        self.last_kf_T.copy_(last_kf_T)
         self._n_kf_host += 1
         self.last_kf_idx = kf_idx
-        # frames already dispatched used the previous reference keyframe:
-        # their (in-flight) keyframe decisions are stale from here on
-        self._kf_ref_fresh_from = self._frame_i
         self.state.keyframes += 1
         return kf_idx
 
@@ -629,7 +695,7 @@ class SLAMSession:
             return {}
         res = bworker.backend_pass(
             job.map, job.edges, job.n_edges, job.kf_idx, self.cfg,
-            n_kf=job.n_kf, allow_loop=job.allow_loop,
+            n_kf=job.n_kf, allow_loop=job.allow_loop, blk=self._blk,
         )
         # an inline result is never stale: it carries the current generation
         res.generation = job.generation
@@ -689,18 +755,18 @@ class SLAMSession:
                                                       weight=weight)
             if r.fuse_row is not None:
                 self.map = _fuse_merge(self.map, snap, i, r.fuse_row, r.pt_invalidate,
-                                       r.pt_nobs_delta, r.n_fused)
+                                       r.pt_nobs_delta, r.n_fused, self._blk)
             self.state.loops += 1
             self.state.loop_merge_frames.append(self.state.frames)
             self._last_loop_kf = max(self._last_loop_kf, snap)
             self._loop_gen += 1  # older snapshots can no longer merge
-        self.T_world = se3.normalize_rotation(C @ self.T_world)
-        # pending estimates inherited the pre-merge anchor; a keyframe
-        # inserted from one must land in the corrected frame
-        for e in self._pending:
-            e.T = C @ e.T
+        self.T_world.copy_(se3.normalize_rotation(C @ self.T_world))
+        # the pending estimate inherited the pre-merge anchor; a keyframe
+        # inserted from it must land in the corrected frame
+        if self._pending is not None:
+            self._pending.T = C @ self._pending.T
         if self.last_kf_idx >= 0:
-            self.last_kf_T = self.map.kf_pose[self.last_kf_idx].clone()
+            self.last_kf_T.copy_(self.map.kf_pose[self.last_kf_idx])
         if self.metrics is not None:
             self.metrics.log(
                 "backend", kf=snap, ba_rmse=round(r.ba_rmse, 3),
@@ -737,6 +803,7 @@ class SLAMSession:
             res = bworker.backend_pass(
                 self.map, self.edges, self.n_edges, self.last_kf_idx, self.cfg,
                 n_kf=self._n_kf_host, allow_loop=self._allow_loop(self.last_kf_idx),
+                blk=self._blk,
             )
             res.generation = self._loop_gen
             self._apply_backend(res)
@@ -749,9 +816,10 @@ class SLAMSession:
             self.worker = None
 
     def flush_pipeline(self):
-        """Finalize every pending frame's decisions and stats."""
-        while self._pending:
-            self._resolve_entry(self._pending.popleft())
+        """Finalize the pending frame's decisions and stats."""
+        e, self._pending = self._pending, None
+        if e is not None:
+            self._resolve_entry(e)
 
     def _finish(self, st: FrameStats, t0: float) -> FrameStats:
         st.track_ms = (time.monotonic() - t0) * 1e3
@@ -763,7 +831,7 @@ class SLAMSession:
         if self.metrics is not None and every and self.state.frames % every == 0:
             recent = self.stats[-every:]
             mean_ms = sum(s.track_ms for s in recent) / len(recent)
-            # the newest frames' inlier fractions may still be in flight
+            # the newest frame's inlier fraction is still in flight
             # (placeholder -1): the mean is over the resolved ones
             inl = [s.inlier_fraction for s in recent if s.inlier_fraction >= 0]
             self.metrics.log(
@@ -809,7 +877,8 @@ class SLAMSession:
         if T_est is None:
             T_est = self.T_world
         _, desc, pts, ok = self._features(self._upload(depth_t), self._upload(rgb_t))
-        T_fixed, C, stats = _reloc(self.map, desc.signs, ok, pts, T_est, self.cfg)
+        T_fixed, C, stats = _reloc(self.map, desc.signs, ok, pts, T_est, self.cfg,
+                                   blk=self._blk)
         accept, inliers, n_valid, jump = stats.tolist()  # the one blocking fetch
         if accept < 0.5:
             return None, None
@@ -821,15 +890,14 @@ class SLAMSession:
 
     def reset(self):
         """Full reset: a fresh session on the same config, backend mode,
-        device and metrics sink (the worker, if any, is drained and stopped
-        first). The pinned upload ring is kept: it is allocated once a
-        session, and a slot's event still guards its last copy."""
-        was_async, staging = self.async_backend, self._staging
+        device, metrics sink, mesh (a sharded session keeps its blocks) and
+        frame mode; the worker, if any, is drained and stopped first. What
+        a session allocates once is kept: the pinned upload ring (a slot's
+        event still guards its last copy), the frame graph with its memory
+        pool, and the static tensors it reads, which are set to a fresh
+        session's values in place (a grown ring keeps its size)."""
         self.close()
-        self.__init__(self.cfg, async_backend=was_async, device=self.device,
-                      metrics=self.metrics)
-        if staging is not None:
-            self._staging = staging
+        self._fresh()
 
     # ------------------------------------------------------------ outputs
     def _traj_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -847,7 +915,7 @@ class SLAMSession:
     def _restore_traj(self, ts, T, kf_idx, kfT):
         """Inverse of `_traj_arrays` (checkpoint restore)."""
         n = len(ts)
-        cap = 4096
+        cap = self.traj_capacity
         while cap < n:
             cap *= 2
         self._traj_cap = cap
@@ -891,8 +959,8 @@ class SLAMSession:
                 self.map.kf_pose[:n].cpu().numpy())
 
     def map_point_count(self) -> int:
-        """Number of valid map points (one fetch)."""
-        return int(smap.map_point_count(self.map))
+        """Number of valid map points (one fetch; sharded: a collective)."""
+        return int(smap.map_point_count(self.map, self._blk))
 
     def save_trajectory(self, path: str):
         """TUM-format full trajectory (`SaveTrajectoryTUM` parity)."""

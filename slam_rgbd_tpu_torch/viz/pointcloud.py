@@ -3,7 +3,8 @@
 Counterpart of `slam_rgbd_tpu/viz/pointcloud.py`. `frame_to_pointcloud`
 back-projects a frame with the port's `core.camera` on `device` (the CUDA
 device unless the caller asks for the CPU) and reads the result back to the
-host once; `map_to_pointcloud` reads a map's valid points back once.
+host once; `map_to_pointcloud` reads a map's valid points back once (a
+map-block sharded map: gathered from the blocks first).
 `save_ply` / `load_ply` and `pointcloud_json` are numpy, byte for byte the
 reference's.
 """
@@ -17,6 +18,7 @@ import torch
 
 from slam_rgbd_tpu_torch.core import camera
 from slam_rgbd_tpu_torch.core.config import CameraIntrinsics
+from slam_rgbd_tpu_torch.parallel.mesh import gather
 
 
 def frame_to_pointcloud(
@@ -50,9 +52,16 @@ def frame_to_pointcloud(
     return pts.astype(np.float32), colors.astype(np.uint8)
 
 
-def map_to_pointcloud(map_state) -> tuple[np.ndarray, np.ndarray]:
-    """The valid map points of a `MapState` as a cloud of one colour."""
-    pts = map_state.pt_xyz[map_state.pt_valid].cpu().numpy()
+def map_to_pointcloud(map_state, blk=None) -> tuple[np.ndarray, np.ndarray]:
+    """The valid map points of a `MapState` as a cloud of one colour. With
+    `blk` (a `parallel.mesh.Block`: the map holds this rank's block of the
+    point table) every rank of the group calls it and gets the whole
+    cloud."""
+    xyz, valid = map_state.pt_xyz, map_state.pt_valid
+    if blk is not None:
+        xyz = gather(xyz, blk.mesh, blk.axis)
+        valid = gather(valid, blk.mesh, blk.axis)
+    pts = xyz[valid].cpu().numpy()
     colors = np.full((len(pts), 3), (120, 180, 255), np.uint8)
     return pts.astype(np.float32), colors
 

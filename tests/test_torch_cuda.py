@@ -292,6 +292,243 @@ def test_session_on_card_matches_cpu(cuda_device):
     assert na > 0 and abs(na - nb) <= 0.05 * na
 
 
+def _graph_config() -> SLAMConfig:
+    """The small session of these tests, at the default runtime settings."""
+    return SLAMConfig(
+        camera=CAM,
+        keyframes=KeyframeConfig(kf_min_trans=0.03, max_keyframes=16,
+                                 max_map_points=2048),
+        orb=ORBConfig(n_features=256),
+    )
+
+
+def _sweep_with_a_lost_frame(device, n: int, lost: int = 6) -> list:
+    """n frames of the sweep on `device`, frame `lost` with its depth
+    blanked outside a central window (it falls under the inlier gate)."""
+    frames = [list(f) for f in SyntheticSequence(n, CAM, sweep=True, device=device)]
+    depth = frames[lost][1]
+    window = np.zeros_like(depth)
+    window[30:90, 50:110] = depth[30:90, 50:110]
+    frames[lost][1] = window
+    return frames
+
+
+@pytest.mark.cuda
+def test_frame_graph_equals_the_eager_step_on_card(cuda_device):
+    """30 frames of the sweep, one of them damaged so that it is lost and
+    relocalized, keyframes inserted along the way: the session whose tracked
+    frame is one CUDA graph replay against the same session with
+    `cuda_graph=False`. Keyframes, lost and relocalized counts, every frame
+    and keyframe pose bit for bit; one capture, a replay a tracked frame
+    after it, and 12 `gn_reduce` + 10 `gn_reduce_batched` launches counted
+    for every tracked frame, replays included."""
+    cfg = _graph_config()
+    frames = _sweep_with_a_lost_frame(cuda_device, 30)
+    out = {}
+    for graph in (False, True):
+        sess = SLAMSession(cfg, device=cuda_device, cuda_graph=graph)
+        deltas = []
+        for f in frames:
+            before = (tg.gn_reduce.launches, tg.gn_reduce_batched.launches)
+            sess.process_frame(*f)
+            deltas.append((tg.gn_reduce.launches - before[0],
+                           tg.gn_reduce_batched.launches - before[1]))
+        out[graph] = (sess.poses()[1], sess.keyframe_poses()[1], sess.state.keyframes,
+                      sess.state.lost, sess.state.relocalized, deltas, sess._graph)
+    eager, graph = out[False], out[True]
+    assert eager[6] is None and graph[6].captures == 1
+    assert graph[6].replays == len(frames) - 2
+    assert graph[2] == eager[2] >= 3
+    assert graph[3:5] == eager[3:5] and graph[4] >= 1
+    assert np.array_equal(graph[0], eager[0]) and np.array_equal(graph[1], eager[1])
+    for run in (eager, graph):
+        assert run[5] == [(0, 0)] + [(12, 10)] * (len(frames) - 1)
+
+
+@pytest.mark.cuda
+def test_pending_frames_keep_their_frame_and_pose_across_replays_on_card(cuda_device,
+                                                                         monkeypatch):
+    """Host frames (numpy, through the pinned ring) into a graph session
+    and an eager one, with keyframes along the way: each frame's decisions
+    resolve at the next call, before that call's replay, at the default
+    `max_decision_lag`; until then the pending entry keeps its own uploaded
+    depth and rgb (the next frame is uploaded before it resolves) and its
+    own pose (not the live pose's storage, which the next replay writes),
+    equal to the eager session's entry; keyframes and poses are the eager
+    session's."""
+    frames = list(SyntheticSequence(12, CAM, sweep=True, device=cuda_device))
+    real_resolve = SLAMSession._resolve_entry
+    runs = {}
+    for graph in (False, True):
+        sess = SLAMSession(_graph_config(), device=cuda_device, cuda_graph=graph)
+        resolved = []
+
+        def watched(self, e):
+            n = self._graph.replays if self._graph is not None else None
+            resolved.append((e, e.depth_raw.cpu(), e.rgb.cpu(), e.T.clone(), n))
+            return real_resolve(self, e)
+
+        monkeypatch.setattr(SLAMSession, "_resolve_entry", watched)
+        for f in frames:
+            sess.process_frame(*f)
+            assert sess._pending is not None or sess._frame_i == 1
+        runs[graph] = (sess, resolved, sess.poses()[1])
+    sess, resolved, poses = runs[True]
+    assert sess.state.keyframes >= 3
+    assert [r[0].frame_i for r in resolved] == list(range(1, len(frames)))
+    for (e, depth, rgb, T, replays), eager in zip(resolved, runs[False][1]):
+        _, d, c = frames[e.frame_i]
+        assert torch.equal(depth, torch.from_numpy(d.astype(np.int32)))
+        assert torch.equal(rgb, torch.from_numpy(c))
+        assert torch.equal(T, eager[3]) and e.T.data_ptr() != sess.T_world.data_ptr()
+        # frame 1 is captured, not replayed; frame i > 1 is replay i - 1
+        assert replays == e.frame_i - 1
+    assert runs[False][0].state.keyframes == sess.state.keyframes
+    assert np.array_equal(poses, runs[False][2])
+
+
+@pytest.mark.cuda
+def test_capture_keeps_the_count_of_a_kernel_another_thread_launches_on_card(
+        cuda_device, monkeypatch):
+    """A thread launches `hamming_top2` on its own stream, as the backend
+    worker does, while this thread captures the frame graph: the kernel's
+    count grows by exactly the thread's launches (some of them made during
+    the capture), and replays add none of it; K1 / K1b still count 12 / 10
+    a tracked frame."""
+    import threading
+
+    from slam_rgbd_tpu_torch.runtime.frame_graph import FrameGraph
+
+    rng = np.random.default_rng(0)
+    signs = torch.from_numpy(rng.choice([-1, 1], size=(512, 256)).astype(np.int8)).to(
+        cuda_device)
+    valid = torch.ones(512, dtype=torch.bool, device=cuda_device)
+    th.hamming_top2(signs, valid, signs, valid)  # builds
+    torch.cuda.synchronize()
+    capturing, stop = threading.Event(), threading.Event()
+    launched, during = [0], [0]
+
+    def launch():
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            while not stop.is_set():
+                th.hamming_top2(signs, valid, signs, valid)
+                launched[0] += 1
+                during[0] += capturing.is_set()
+            torch.cuda.current_stream(cuda_device).synchronize()
+
+    real_capture = FrameGraph._capture
+
+    def watched_capture(self, *args, **kw):
+        capturing.set()
+        try:
+            return real_capture(self, *args, **kw)
+        finally:
+            capturing.clear()
+
+    monkeypatch.setattr(FrameGraph, "_capture", watched_capture)
+    frames = list(SyntheticSequence(6, CAM, sweep=True, device=cuda_device))
+    sess = SLAMSession(_graph_config(), device=cuda_device)
+    before = (th.hamming_top2.launches, tg.gn_reduce.launches,
+              tg.gn_reduce_batched.launches)
+    thread = threading.Thread(target=launch)
+    thread.start()
+    try:
+        for f in frames:
+            sess.process_frame(*f)
+        sess.flush_pipeline()
+    finally:
+        stop.set()
+        thread.join()
+    torch.cuda.synchronize()
+    tracked = len(frames) - 1
+    assert sess._graph.captures == 1 and during[0] > 0 and sess.state.lost == 0
+    assert th.hamming_top2.launches - before[0] == launched[0]
+    assert tg.gn_reduce.launches - before[1] == 12 * tracked
+    assert tg.gn_reduce_batched.launches - before[2] == 10 * tracked
+    assert set(sess._graph._per_replay) <= {tg.gn_reduce, tg.gn_reduce_batched}
+
+
+@pytest.mark.cuda
+def test_capture_while_the_backend_worker_runs_a_job_on_card(cuda_device, monkeypatch):
+    """A threaded session: the bootstrap keyframe's backend job starts at
+    the second call, whose steady frame is then captured while the job runs
+    on the worker's stream (the pass is held a while); the capture and the
+    pass both succeed, and the session tracks on."""
+    import time
+
+    from slam_rgbd_tpu_torch.backend import worker as tworker
+    from slam_rgbd_tpu_torch.runtime.frame_graph import FrameGraph
+
+    real_pass, real_capture = tworker.backend_pass, FrameGraph._capture
+    busy_at_capture = []
+
+    def held_pass(*args, **kw):
+        res = real_pass(*args, **kw)
+        time.sleep(0.5)
+        return res
+
+    def watched_capture(self, *args, **kw):
+        busy_at_capture.append(sess.worker._job is not None)
+        return real_capture(self, *args, **kw)
+
+    monkeypatch.setattr(tworker, "backend_pass", held_pass)
+    monkeypatch.setattr(FrameGraph, "_capture", watched_capture)
+    sess = SLAMSession(_graph_config(), async_backend=True, device=cuda_device)
+    try:
+        for f in SyntheticSequence(12, CAM, sweep=True, device=cuda_device):
+            sess.process_frame(*f)
+        sess.sync_backend()
+        completed = sess.worker.completed
+        T = sess.poses()[1]
+    finally:
+        sess.close()
+    assert busy_at_capture == [True] and sess._graph.captures == 1
+    assert completed >= 1 and sess.state.lost == 0 and np.isfinite(T).all()
+
+
+@pytest.mark.cuda
+def test_graph_is_captured_again_after_the_ring_grows_on_card(cuda_device, monkeypatch):
+    """A trajectory ring of 8 rows grows to 16 and 32 over 20 frames: each
+    growth gives a new capture, and the poses are the eager session's bit
+    for bit."""
+    monkeypatch.setattr(SLAMSession, "traj_capacity", 8)
+    cfg = _graph_config()
+    frames = list(SyntheticSequence(20, CAM, sweep=True, device=cuda_device))
+    poses = {}
+    for graph in (False, True):
+        sess = SLAMSession(cfg, device=cuda_device, cuda_graph=graph)
+        for f in frames:
+            sess.process_frame(*f)
+        poses[graph] = sess.poses()[1]
+        assert sess._traj_cap == 32
+    assert sess._graph.captures == 3 and sess._graph.replays == len(frames) - 1 - 3
+    assert np.array_equal(poses[True], poses[False])
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_on_card(cuda_device, monkeypatch):
+    """A steady step that reads a value back to the host cannot be
+    captured: the session raises, and does not fall back to the eager
+    step."""
+    from slam_rgbd_tpu_torch.runtime import session as tsession
+
+    real = tsession._steady_step
+
+    def reading_back(*args, **kw):
+        out = real(*args, **kw)
+        out[3].sum().item()  # a host read inside the frame
+        return out
+
+    monkeypatch.setattr(tsession, "_steady_step", reading_back)
+    frames = list(SyntheticSequence(3, CAM, sweep=True, device=cuda_device))
+    sess = SLAMSession(_graph_config(), device=cuda_device)
+    sess.process_frame(*frames[0])
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        sess.process_frame(*frames[1])
+    assert sess._graph.graph is None
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_lost_frame_relocalizes_on_card(cuda_device):
     """The serving route of a relocalization on the card: a frame whose
@@ -525,11 +762,22 @@ def test_a_call_is_one_launch_and_nothing_else_on_card(cuda_device, name):
         fn = getattr(tg, name)
     fn(*args)  # builds, makes the workspace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
+    # A warm-up step first: CUPTI takes its activity buffer at the first
+    # device record it has to store, and a trace stopped before that holds
+    # no device event at all. The warm-up step's records stay out of the
+    # trace, which is the active step's; the profiler's own step marker
+    # (`ProfilerStep#`, an annotation on the device timeline, not an
+    # operation) is not counted.
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule) as prof:
+        for _ in range(2):
+            fn(*args)
+            torch.cuda.synchronize()
+            prof.step()
     on_device = [(ev.key, ev.count) for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not ev.key.startswith("ProfilerStep")]
     assert len(on_device) == 1 and on_device[0][1] == 1, on_device
     assert kernel in on_device[0][0]
 

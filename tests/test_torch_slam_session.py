@@ -293,3 +293,12 @@ def test_default_device_is_cuda_and_raises_without_one():
         SyntheticSequence(2, CAM)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["run", "synthetic:2"])
+
+
+def test_cuda_graph_on_the_cpu_raises_and_the_eager_step_is_its_path():
+    """The frame graph is for a CUDA device: asked for on the CPU it raises;
+    the CPU's session runs the eager step (no graph)."""
+    with pytest.raises(ValueError, match="cuda_graph"):
+        SLAMSession(CFG, device="cpu", cuda_graph=True)
+    assert SLAMSession(CFG, device="cpu")._graph is None
+    assert SLAMSession(CFG, device="cpu", cuda_graph=False)._graph is None

@@ -13,9 +13,8 @@ them, loops and ATE:
     decisions computed before the newest insert resolved are suppressed, so
     the count follows how fast its programs finish;
   * the same with `max_decision_lag=1`: every decision at the next call;
-  * the port's `SLAMSession(device="cpu")` at the default lag: on the CPU
-    (and on a card whose tracked frame finishes before the next call is
-    queued) every decision lands at the next call.
+  * the port's `SLAMSession(device="cpu")`: on every device it resolves
+    each frame's decisions at the next call, whatever the lag setting.
 
 `--only jax12|jax1|port` runs one of the three (they take tens of minutes
 each on a CPU; three processes at once take the time of the slowest).
