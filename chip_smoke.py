@@ -122,7 +122,14 @@ them). Phases, each fatal on failure:
                phase's first 30 frames, whose poses, keyframes, loops, lost
                frames and map points equal an unsharded `BatchSession` on
                the same frames; the ranks' K1b / K2 / K3 launches join the
-               kernel table. Then `scaling.batch_scaling` at B = 1 / 2 / 4 /
+               kernel table; then `SLAMSession(cfg, mesh=)` (each rank half
+               of the point table) over 62 sweep frames at 640x480, one of
+               them damaged, inline against the unsharded session bit for
+               bit, and threaded (`async_backend=True`): forced by
+               `sync_backend()` each call against the threaded unsharded
+               session bit for bit, and free-running with the ranks equal
+               to each other bit for bit and the ATE within 5 cm; their
+               launches join the table too. Then `scaling.batch_scaling` at B = 1 / 2 / 4 /
                8 and `python -m slam_rgbd_tpu_torch benchmark --scaling` as
                a subprocess (the report names the card, one device).
 
@@ -160,6 +167,7 @@ PAR_RANKS = 2  # ranks that share the card in the parallel phase (gloo)
 SCALING_ITERS = 50  # timed steps a batch size in the parallel phase's batch_scaling
 SHARD_FRAMES = 60  # the sharded session's clean frames (the sweep's first); then
 #                    one damaged (a relocalization) and one more
+AGREE_CALLS = 200  # timed calls of the threaded sharded session's agreement
 KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
 # the loop leg of the JAX package's bench: a constant twist composed onto
 # every tracked relative pose, denser keyframes, a shorter loop interval
@@ -2152,34 +2160,66 @@ def _map_digest(m, blk) -> dict:
     return out
 
 
-def _shard_session_run(sess, frames, fps: float) -> dict:
+def _merge_log(sess) -> list:
+    """(frame count, snapshot keyframe) of every backend result `sess`
+    merges from now on. The wrapper holds the session weakly: a reference
+    cycle would keep a finished session, frame graph and all, for the
+    garbage collector."""
+    import weakref
+
+    merged = []
+    ref = weakref.ref(sess)
+
+    def logged(r):
+        s = ref()
+        if r is not None:
+            merged.append((s.state.frames, r.snap_kf_idx))
+        type(s)._apply_backend(s, r)
+
+    sess._apply_backend = logged
+    return merged
+
+
+def _shard_session_run(sess, frames, fps: float, synced: bool = False) -> dict:
     """Drive a session of the leg over its frames -> what the leg compares:
     poses, keyframe poses, host counts, the map's digests, call ms (CUDA
-    events), the kernels' launches (counted from 0)."""
+    events around each call), the kernels' launches (counted from 0), and
+    of a threaded session the merges, loop-merge frames and the worker's
+    completed and skipped passes. `synced`: `sync_backend()` after every
+    call (outside its timing), the forced merge schedule."""
     counters = _par_counters()
     for c in counters.values():
         c.launches = 0
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(frames) + 1)]
+    merged = _merge_log(sess)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in frames]
     inserted = []
-    marks[0].record()
     for i, (depth, rgb) in enumerate(frames):
         before = sess.state.keyframes
+        marks[i][0].record()
         sess.process_frame(i / fps, depth, rgb)
-        marks[i + 1].record()
+        marks[i][1].record()
         inserted.append(sess.state.keyframes > before)
+        if synced:
+            sess.sync_backend()
     sess.flush_pipeline()  # the last decisions: the damaged frame's included
+    poses, kf_poses = sess.poses()[1], sess.keyframe_poses()[1]  # drained
     torch.cuda.synchronize()
     st = sess.state
-    return {
-        "poses": sess.poses()[1], "kf_poses": sess.keyframe_poses()[1],
+    out = {
+        "poses": poses, "kf_poses": kf_poses,
         "counts": [st.keyframes, st.lost, st.relocalized, st.loops,
                    sess.map_point_count()],
         "digest": _map_digest(sess.map, sess._blk),
-        "ms": [marks[i].elapsed_time(marks[i + 1]) for i in range(len(frames))],
+        "ms": [a.elapsed_time(b) for a, b in marks],
         "inserted": inserted,
         "launches": {k: c.launches for k, c in counters.items()},
         "block_rows": int(sess.map.pt_xyz.shape[0]),
     }
+    if sess.worker is not None:
+        out["backend"] = {"merges": merged, "loop_merge_frames": list(st.loop_merge_frames),
+                          "completed": sess.worker.completed,
+                          "skipped": sess.worker.skipped}
+    return out
 
 
 def _parallel_rank(rank: int, world: int, path: str, cfg, leg, gts) -> dict:
@@ -2244,19 +2284,114 @@ def _parallel_rank(rank: int, world: int, path: str, cfg, leg, gts) -> dict:
     out["shard"] = _shard_session_run(sess, frames, cfg.camera.fps)
     checkpoint.save(sess, os.path.join(os.path.dirname(path), "shard_ckpt"))
     out["shard"]["leg_s"] = time.perf_counter() - t0
+    del sess
+
+    # the threaded sharded session on the same frames: forced by
+    # `sync_backend()` after every call, then free-running
+    for name, synced in (("shard_forced", True), ("shard_free", False)):
+        t0 = time.perf_counter()
+        sess = SLAMSession(leg_cfg, async_backend=True, mesh=mesh)
+        try:
+            out[name] = _shard_session_run(sess, frames, cfg.camera.fps, synced=synced)
+            out[name]["leg_s"] = time.perf_counter() - t0
+            # one blocking agreement (the drain's round trip over the host
+            # group; a call starts one and reads it at the next): host clock
+            t0 = time.perf_counter()
+            for _ in range(AGREE_CALLS):
+                sess._agreement_end(*sess._agreement_start())
+            out[name]["agree_ms"] = 1e3 * (time.perf_counter() - t0) / AGREE_CALLS
+        finally:
+            sess.close()
+        del sess
     return out
 
 
 def _shard_reference(cfg) -> dict:
     """The sharded leg's frames through the unsharded session in this
-    process."""
+    process, inline, and threaded under the forced schedule
+    (`sync_backend()` after every call)."""
     from slam_rgbd_tpu_torch import SLAMSession
 
     frames, gt = _shard_leg_frames(cfg)
     t0 = time.perf_counter()
     out = _shard_session_run(SLAMSession(_shard_leg_config(cfg)), frames, cfg.camera.fps)
     out["s"], out["gt"] = time.perf_counter() - t0, gt
+    sess = SLAMSession(_shard_leg_config(cfg), async_backend=True)
+    try:
+        out["forced"] = _shard_session_run(sess, frames, cfg.camera.fps, synced=True)
+    finally:
+        sess.close()
     return out
+
+
+def _check_threaded_shard_leg(cfg, ranks, card: str, ref: dict) -> None:
+    """The threaded sharded session on both ranks: forced, equal to the
+    threaded unsharded session under the same schedule bit for bit (poses,
+    keyframe poses, counts, the whole map, the merges and the worker's
+    counts) with its kernel launches; free-running, the two ranks equal to
+    each other bit for bit and the ATE within ATE_LIMIT_M. Prints the
+    free-running tracked calls' p50 / p99 beside the inline leg's."""
+    from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
+
+    want = ref["forced"]
+    kf = want["counts"][0]
+    n_tracked = len(want["ms"]) - 1
+    check(len(want["backend"]["merges"]) >= 3, f"forced merges {want['backend']}")
+    for r, res in enumerate(ranks):
+        for name in ("shard_forced", "shard_free"):
+            got = res[name]
+            check(got["launches"]["gated_match"] == got["counts"][0] - 1,
+                  f"rank {r} {name}: gated_match launches {got['launches']} for "
+                  f"{got['counts'][0]} keyframes")
+            check(got["launches"]["gn_reduce"] == 12 * n_tracked
+                  and got["launches"]["gn_reduce_batched"] == 10 * n_tracked,
+                  f"rank {r} {name}: gn launches {got['launches']}")
+        got = res["shard_forced"]
+        for k in ("poses", "kf_poses"):
+            check(np.array_equal(got[k], want[k]), f"rank {r}: threaded {k} differ from the "
+                  f"threaded unsharded session's by {np.abs(got[k] - want[k]).max():.3e}")
+        for k in ("counts", "backend", "launches"):
+            check(got[k] == want[k], f"rank {r}: threaded {k} {got[k]} != {want[k]}")
+        diff = [k for k in want["digest"] if got["digest"][k] != want["digest"][k]]
+        check(not diff, f"rank {r}: threaded map fields {diff} differ from the unsharded "
+                        f"threaded session's")
+    free = [res["shard_free"] for res in ranks]
+    for k in ("poses", "kf_poses"):
+        check(np.array_equal(free[0][k], free[1][k]), f"free-running ranks' {k} differ by "
+              f"{np.abs(free[0][k] - free[1][k]).max():.3e}")
+    for k in ("counts", "backend", "launches", "digest"):
+        check(free[0][k] == free[1][k], f"free-running ranks' {k} differ: {free[0][k]} / "
+                                        f"{free[1][k]}")
+    ate = ate_rmse(free[0]["poses"], ref["gt"])[0]
+    ate_inline = ate_rmse(ref["poses"], ref["gt"])[0]
+    check(ate <= ATE_LIMIT_M, f"threaded sharded ATE {ate:.4f} m above {ATE_LIMIT_M} m")
+    steady = slice(STEADY_FROM, None)
+
+    def tracked(run):
+        return np.asarray(run["ms"])[steady][~np.asarray(run["inserted"])[steady]]
+
+    fb = free[0]["backend"]
+    print(f"SLAMSession(cfg, async_backend=True, mesh=) over {PAR_RANKS} gloo ranks sharing "
+          f"one card, the same {len(want['ms'])} frames: forced by sync_backend() each call, "
+          f"every pose, the whole map, the {len(want['backend']['merges'])} merges and the "
+          f"worker's counts equal to the threaded unsharded session's bit for bit on both "
+          f"ranks (keyframes {kf}); free-running, the ranks equal bit for bit: keyframes "
+          f"{free[0]['counts'][0]}, lost {free[0]['counts'][1]}, relocalized "
+          f"{free[0]['counts'][2]}, loops {free[0]['counts'][3]}, {len(fb['merges'])} merges, "
+          f"{fb['completed']} passes completed, {fb['skipped']} skipped; ATE "
+          f"{100 * ate:.3f} cm (inline leg {100 * ate_inline:.3f} cm)")
+    print(f"  tracked calls (frames {STEADY_FROM}-, CUDA events) p50 / p99: threaded "
+          f"{' , '.join(f'{np.percentile(tracked(f), 50):.3f} / {np.percentile(tracked(f), 99):.3f}' for f in free)} "
+          f"ms on the ranks, inline leg "
+          f"{' , '.join(f'{np.percentile(tracked(res['shard']), 50):.3f} / {np.percentile(tracked(res['shard']), 99):.3f}' for res in ranks)} "
+          f"ms; insert calls p50 threaded "
+          f"{' / '.join(f'{np.percentile(np.asarray(f['ms'])[np.asarray(f['inserted'])], 50):.3f}' for f in free)} "
+          f"ms; a blocking agreement (a MIN all-reduce of 3 int32 over the gloo host "
+          f"group, the drain's round trip, host clock, mean of {AGREE_CALLS}) "
+          f"{' / '.join(f'{f['agree_ms']:.4f}' for f in free)} ms on the ranks; "
+          f"launches a rank free-running {free[0]['launches']}; the legs "
+          f"{max(res['shard_forced']['leg_s'] for res in ranks):.1f} s forced, "
+          f"{max(res['shard_free']['leg_s'] for res in ranks):.1f} s free-running ({card})")
 
 
 def _check_shard_leg(cfg, ranks, card: str, ref: dict, ckpt_dir: str) -> None:
@@ -2445,11 +2580,13 @@ def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
         check(res["session_launches"]["gated_match"] == int((own - 1).sum()),
               f"rank {r} gated_match launches {res['session_launches']}")
 
-    # ---- the map-block sharded session on the two ranks
+    # ---- the map-block sharded session on the two ranks, inline and threaded
     for r, res in enumerate(ranks):
         for k in counters:
-            launches[k] += res["shard"]["launches"][k]
+            launches[k] += sum(res[leg]["launches"][k]
+                               for leg in ("shard", "shard_forced", "shard_free"))
     _check_shard_leg(cfg, ranks, card, shard_ref, ckpt_dir)
+    _check_threaded_shard_leg(cfg, ranks, card, shard_ref)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- batch scaling on the card
@@ -2542,7 +2679,7 @@ def main() -> int:
         dict(name="gn_reduce", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:413",
              launches=(main_launches + degraded["gn_reduce"] + pipe["gn_reduce"]
-                       + leg["gn_reduce"]),
+                       + leg["gn_reduce"] + par["gn_reduce"]),
              max_abs_err=gn["max_err"],
              **{k: full[k] for k in timing}, library_ms=None),
         dict(name="gn_reduce_batched", route="cuda", source=csrc + "gn_reduce.cu",

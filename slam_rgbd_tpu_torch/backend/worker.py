@@ -56,9 +56,11 @@ compacted window's points from their blocks, solves them on every rank
 alike and writes back the rows of its own block; fusion counts the
 observation deltas and finds the ghosts on the block; the pose graph and
 `ride_with_anchors` need no traffic (the graph is over keyframes, the ride
-is elementwise a point). A result holds this rank's block. Only the inline
-pass is sharded: the worker thread's collectives would need a process group
-of their own.
+is elementwise a point). A result holds this rank's block. A worker given
+a `Block` (the threaded sharded session) runs its passes on that block; the
+session gives it a block whose `group` is a process group of the worker's
+own over the same ranks, so that its collectives never interleave with the
+frontend's.
 
 The fusion thresholds are the reference's hard-coded ones (Hamming 64,
 ratio 0.9, 6 cm); the port matches them and keeps no option for them.
@@ -379,6 +381,12 @@ class BackendWorker:
     """One backend thread, one in-flight job, one latest waiting job, one
     pending result.
 
+    A pass that ended stays pending until the frontend takes it (`poll` /
+    `flush`), whether it returned a result or failed: until then the worker
+    is busy, and a failed pass is not mistaken for an idle worker.
+    `completed` counts the passes that ended, failed ones included. With
+    `blk`, every pass runs `backend_pass(..., blk=blk)`.
+
     `submit` never blocks: while a job is in flight or a result is
     unconsumed, a new job replaces the waiting one, and the displaced job is
     a recorded skip (sliding windows overlap, so the newest window covers a
@@ -389,15 +397,17 @@ class BackendWorker:
     waiting one.
     """
 
-    def __init__(self, cfg: SLAMConfig, device="cpu"):
+    def __init__(self, cfg: SLAMConfig, device="cpu", blk: Block | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.blk = blk
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._cv = threading.Condition()
         self._job: Optional[BackendJob] = None  # in flight on the thread
         self._next_job: Optional[BackendJob] = None  # latest waiting
         self._result: Optional[BackendResult] = None
+        self._ended = False  # a pass ended and the frontend has not taken it
         self._stop = False
         self.skipped = 0
         self.completed = 0
@@ -408,7 +418,7 @@ class BackendWorker:
     # ------------------------------------------------------------- frontend
     def submit(self, job: BackendJob) -> bool:
         with self._cv:
-            if self._job is None and self._result is None:
+            if self._job is None and not self._ended:
                 if self._next_job is not None:
                     self.skipped += 1  # superseded by the newer snapshot
                     self._next_job = None
@@ -429,12 +439,34 @@ class BackendWorker:
                 t.record_stream(stream)
         return r
 
+    def _take(self) -> Optional[BackendResult]:
+        r, self._result, self._ended = self._result, None, False
+        return r
+
     def poll(self) -> Optional[BackendResult]:
         """Take the pending result (non-blocking; never promotes: call
         `advance` after merging)."""
         with self._cv:
-            r, self._result = self._result, None
+            r = self._take()
         return self._hand_over(r)
+
+    def ended(self) -> tuple[bool, bool]:
+        """(no job is in flight, a result is pending): what `poll` would
+        find, without taking it."""
+        with self._cv:
+            return self._job is None, self._result is not None
+
+    def wait(self, timeout: float) -> bool:
+        """Wait up to `timeout` s for the in-flight job, if any, to end;
+        nothing is taken. True if no job is in flight."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._job is not None and not self._stop:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cv.wait(timeout=min(remaining, 0.5))
+            return self._job is None
 
     def advance(self, min_generation: int = 0, allow_loop=None):
         """Promote the latest waiting job, if any and the worker is idle.
@@ -442,7 +474,7 @@ class BackendWorker:
         skip. `allow_loop(kf_idx) -> bool` re-evaluates the session's loop
         cooldown at start time."""
         with self._cv:
-            if self._job is not None or self._result is not None:
+            if self._job is not None or self._ended:
                 return
             if self._next_job is None:
                 return
@@ -462,7 +494,7 @@ class BackendWorker:
         """True while a job is in flight, waiting, or unconsumed."""
         with self._cv:
             return (self._job is not None or self._next_job is not None
-                    or self._result is not None)
+                    or self._ended)
 
     def flush(self, timeout: float = 30.0) -> Optional[BackendResult]:
         """Wait for the in-flight job (if any) and return its result.
@@ -476,7 +508,7 @@ class BackendWorker:
                     log.error("backend flush timed out")
                     return None
                 self._cv.wait(timeout=min(remaining, 0.5))
-            r, self._result = self._result, None
+            r = self._take()
         return self._hand_over(r)
 
     def stop(self, timeout: float = 10.0):
@@ -489,7 +521,8 @@ class BackendWorker:
     def _pass(self, job: BackendJob) -> BackendResult:
         def run():
             return backend_pass(job.map, job.edges, job.n_edges, job.kf_idx,
-                                self.cfg, n_kf=job.n_kf, allow_loop=job.allow_loop)
+                                self.cfg, n_kf=job.n_kf, allow_loop=job.allow_loop,
+                                blk=self.blk)
 
         if self._stream is None:
             return run()
@@ -518,6 +551,7 @@ class BackendWorker:
                 result = None
             with self._cv:
                 self._result = result
+                self._ended = True
                 self._job = None
                 self.completed += 1
                 self._cv.notify_all()

@@ -148,13 +148,17 @@ class BoundedFrameQueue:
     `put` never blocks the producer: above `capacity` frames it warns and
     drops the oldest down to `drop_to`, keeping the freshest data (bounded
     latency over lossless delivery, as a real-time tracker wants).
+    `lossless=True` drops nothing: `put` waits while `capacity` frames are
+    queued (for consumers that must see every frame, as the ranks of a
+    sharded session must see the same ones).
     """
 
-    def __init__(self, capacity: int = 10, drop_to: int = 5):
+    def __init__(self, capacity: int = 10, drop_to: int = 5, lossless: bool = False):
         if drop_to > capacity:
             raise ValueError(f"drop_to {drop_to} above capacity {capacity}")
         self.capacity = capacity
         self.drop_to = drop_to
+        self.lossless = lossless
         self._dq: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self.dropped = 0
@@ -162,6 +166,8 @@ class BoundedFrameQueue:
 
     def put(self, item) -> None:
         with self._cv:
+            while self.lossless and len(self._dq) >= self.capacity and not self._closed:
+                self._cv.wait()
             self._dq.append(item)
             if len(self._dq) > self.capacity:
                 n = len(self._dq) - self.drop_to
@@ -182,6 +188,7 @@ class BoundedFrameQueue:
                 if remaining is not None and remaining <= 0:
                     raise TimeoutError("frame queue get timed out")
                 self._cv.wait(remaining)
+            self._cv.notify_all()  # a lossless producer may wait for room
             return self._dq.popleft()
 
     def close(self) -> None:

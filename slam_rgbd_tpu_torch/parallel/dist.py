@@ -39,7 +39,7 @@ from slam_rgbd_tpu_torch.core.config import BAConfig, CameraIntrinsics, ICPConfi
 from slam_rgbd_tpu_torch.mapping.map import association_candidates, association_ids
 from slam_rgbd_tpu_torch.odometry.icp import icp_align_batched
 from slam_rgbd_tpu_torch.ops.hamming import Matches, hamming_top2
-from slam_rgbd_tpu_torch.parallel.mesh import Block, gather, gather_rows, shard
+from slam_rgbd_tpu_torch.parallel.mesh import Block, gather, gather_group, gather_rows, shard
 
 
 # --------------------------------------------------------------------- BA
@@ -220,8 +220,8 @@ def sharded_map_match(
     d_all = torch.stack([best, second])[None]  # (n, 2, K1)
     i_all = idx[None]  # (n, K1)
     if blk is not None:
-        d_all = gather(d_all, blk.mesh, blk.axis)
-        i_all = gather(i_all + blk.start, blk.mesh, blk.axis)
+        d_all = gather_group(d_all, blk.group)
+        i_all = gather_group(i_all + blk.start, blk.group)
     win = _first_min(d_all[:, 0])[None]  # (1, K1): the winning block
     best_g = d_all[:, 0].gather(0, win)[0]
     idx_g = i_all.gather(0, win)[0]

@@ -39,6 +39,10 @@ from slam_rgbd_tpu_torch.core.config import MeshConfig
 
 # how long a collective or the rendezvous waits for the other ranks
 TIMEOUT = datetime.timedelta(minutes=10)
+# how long a collective of the threaded sharded session's backend worker
+# waits: a pass that fails on one rank then fails on the others within this,
+# instead of holding their workers in an all-reduce
+WORKER_TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def mesh_shape(world_size: int, cfg: MeshConfig = MeshConfig()) -> tuple[int, int]:
@@ -142,7 +146,11 @@ def gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """Every rank's block of a sharded array put back together along `dim`,
     on every rank (the blocks in the order of the axis). A collective: each
     rank of the axis group calls it with a block of the same shape."""
-    group = mesh.get_group(axis)
+    return gather_group(x, mesh.get_group(axis), dim)
+
+
+def gather_group(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """`gather` over the ranks of `group`, in their order in the group."""
     n = dist.get_world_size(group)
     src = x.contiguous()
     as_bool = src.dtype == torch.bool
@@ -152,6 +160,25 @@ def gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(torch.bool) if as_bool else out
+
+
+def axis_group(mesh, axis: str, backend: str | None = None,
+               timeout: datetime.timedelta = TIMEOUT):
+    """A new process group over this rank's row of mesh axis `axis` (the
+    ranks that share its other coordinates), besides the mesh's own, so
+    that two threads of a rank can run collectives over the same ranks
+    without interleaving. `backend` None is the default group's. A
+    collective over the whole world: every rank creates the group of every
+    row, in the same order, and keeps its own."""
+    dim = mesh.mesh_dim_names.index(axis)
+    rows = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.size(dim)).tolist()
+    me = dist.get_rank()
+    mine = None
+    for ranks in rows:
+        group = dist.new_group(ranks, timeout=timeout, backend=backend)
+        if me in ranks:
+            mine = group
+    return mine
 
 
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -21,7 +21,8 @@ whole map: `save`, called on every rank of the `model` group, gathers the
 blocks of the point table and the group's first rank writes the files;
 `restore` reads them on every rank and keeps the rows of the rank's block.
 So a checkpoint of a sharded session restores into an unsharded one and the
-other way round.
+other way round. A threaded sharded session's worker is drained before the
+save, with the ranks' agreed drain.
 """
 
 from __future__ import annotations
@@ -79,10 +80,14 @@ def _flatten_state(session: "SLAMSession") -> dict:
 def save(session: "SLAMSession", path: str) -> None:
     """Write the session's state to directory `path`. A sharded session:
     every rank of the `model` group calls it with the same path; the
-    group's first rank writes, and every rank returns once it has."""
+    group's first rank writes, and every rank returns once it has. A
+    threaded sharded session drains its worker first, on every rank alike
+    (`SLAMSession.sync_backend`)."""
+    blk = session._blk
+    if blk is not None and session.worker is not None:
+        session.sync_backend()
     session.flush_pipeline()  # the newest frames' decisions first
     arrays = _flatten_state(session)
-    blk = session._blk
     if blk is not None and blk.index != 0:
         torch.distributed.barrier(group=blk.group)  # the writer is done
         return

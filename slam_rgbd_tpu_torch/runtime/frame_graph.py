@@ -46,6 +46,10 @@ session (`runtime.session.SLAMSession`):
      which the session keeps across `reset()`.
   8. TF32 stays as the session set it (off), the same in the capture as in
      the eager step.
+  9. Garbage. Destroying a CUDA graph while a stream captures invalidates
+     the capture, and a garbage collection inside it could free a finished
+     session held in a reference cycle, graph and all. So the capture runs
+     with the collector off.
 
 A capture that fails raises; nothing falls back to the eager step. The
 eager step stays the plain version: the session runs it on the CPU, and on
@@ -53,6 +57,8 @@ the card when asked (`SLAMSession(..., cuda_graph=False)`).
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -162,6 +168,11 @@ class FrameGraph:
         summary.record_stream(main)
         before = {c: c.launches for c in _counters()}
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collection there could
+        # free another session's graph, and destroying a graph is not
+        # permitted while a stream captures (it invalidates the capture)
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self.stream,
                                   capture_error_mode="thread_local"):
@@ -171,6 +182,8 @@ class FrameGraph:
                 "capturing the steady-state frame as a CUDA graph failed; pass "
                 "cuda_graph=False to run it eagerly") from exc
         finally:
+            if gc_on:
+                gc.enable()
             captured = {c: c.launches - n for c, n in before.items()}
             for c, n in before.items():
                 c.launches = n

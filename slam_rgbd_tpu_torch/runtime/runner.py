@@ -15,6 +15,12 @@ own (with its own CUDA stream on a card). `run(threads=False)` drives the
 same session from the caller's thread. RESET is carried out by the consumer
 between two frames (the reference resets from the producer thread, under a
 frame in flight).
+
+With `mesh=`, the session is map-block sharded (`SLAMSession(cfg, mesh=)`,
+inline or threaded backend as `async_backend` says), and every rank of the
+mesh runs a runner over the same source. The threaded pipeline's queue then
+drops no frame (the producer waits for room): each rank's drops would differ,
+and every rank must process the same frames.
 """
 
 from __future__ import annotations
@@ -42,16 +48,17 @@ def _host(x) -> np.ndarray:
 
 class PipelineRunner:
     def __init__(self, config: SLAMConfig, source: Iterable[st.Frame],
-                 async_backend: bool = True, device="cuda"):
+                 async_backend: bool = True, device="cuda", mesh=None):
         self.cfg = config
         self.source = source
         # one metrics sink: the session logs "frame_window" and "backend"
         # records into it, the runner "queue" records
         self.metrics = MetricsLog()
         self.session = SLAMSession(config, async_backend=async_backend,
-                                   device=device, metrics=self.metrics)
+                                   device=device, metrics=self.metrics, mesh=mesh)
         self.queue = st.BoundedFrameQueue(
-            config.stream.queue_capacity, config.stream.queue_drop_to
+            config.stream.queue_capacity, config.stream.queue_drop_to,
+            lossless=self.session._blk is not None,
         )
         self.control = st.ControlChannel()
         self.recorder = None

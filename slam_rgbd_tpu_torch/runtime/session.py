@@ -51,8 +51,22 @@ session on the same frames. The association, insert, cull, relocalization,
 backend pass, merge and point count join the blocks over the `model` group
 (`mapping.map`, `parallel.dist`), exactly, so every rank makes the same
 decisions and the result equals the unsharded session's bit for bit. Each
-rank resolves a frame at the next call, as the unsharded session does; the
-backend runs inline.
+rank resolves a frame at the next call, as the unsharded session does.
+
+The threaded sharded session (`async_backend=True` with such a mesh) runs
+each rank's worker on the rank's block. The worker's collectives go over a
+process group of its own over the same ranks (`parallel.mesh.axis_group`,
+with a timeout of `WORKER_TIMEOUT`), so they never interleave with the
+frontend's. The ranks agree on every merge: while a job is in the worker,
+each call starts one all-reduce (MIN) over a small gloo group of the same
+ranks of whether this rank's pass has ended, and the next call reads it
+(the all-reduce runs in between, so no call waits on the other ranks). Only
+when every rank's pass had ended does any rank take its result, so every
+rank merges at the same call; until then a rank whose pass ended early keeps
+it pending, the worker looks busy on every rank, and every rank queues,
+displaces and promotes the same jobs. The drain in `sync_backend` agrees
+the same way at once, and a drain that times out on one rank raises on
+every rank. The all-reduce runs on the host and never waits on the card.
 
 Frames from the host (numpy arrays) go up through a ring of pinned buffers
 (`runtime.staging.PinnedStaging`) without waiting for the device; frames
@@ -340,8 +354,9 @@ class SLAMSession:
     step. `mesh`: a `torch.distributed` `DeviceMesh` (`parallel.mesh.
     make_mesh`); with a `model` axis above 1 the session holds this rank's
     block of the point table, and every rank of the axis must drive its
-    session with the same frames and calls (map-block sharded mode). A mesh
-    without a `model` axis, or with one of size 1, is the unsharded path.
+    session with the same frames and calls (map-block sharded mode), the
+    backend inline or threaded. A mesh without a `model` axis, or with one
+    of size 1, is the unsharded path.
     """
 
     # rows of the trajectory ring at the start; it doubles when full
@@ -357,14 +372,12 @@ class SLAMSession:
         axis = config.mesh.model_axis
         if (mesh is not None and axis in (mesh.mesh_dim_names or ())
                 and mesh.size(mesh.mesh_dim_names.index(axis)) > 1):
-            if async_backend:
-                raise NotImplementedError(
-                    "SLAMSession(async_backend=True) with a model axis above 1: the "
-                    "threaded map-block sharded session is ROADMAP.md item 9c (the "
-                    "worker's collectives need a process group of their own, and "
-                    "merges and job drops must be agreed across ranks); use the "
-                    "inline backend")
             self._blk = pmesh.model_block(mesh, config.keyframes.max_map_points, axis)
+        # threaded and sharded: the worker's block (the session's with the
+        # worker's own group) and the host group of the per-call agreement,
+        # made once (`_worker_groups`) and kept by `reset()`
+        self._worker_blk = None
+        self._host_group = None
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
         elif cuda_graph and self.device.type != "cuda":
@@ -426,8 +439,10 @@ class SLAMSession:
         self._frame_i = 0
         self._last_kf_frame_i = -(10 ** 9)
         # the backend: inline, or on the worker thread
-        self.worker = (bworker.BackendWorker(cfg, self.device)
-                       if self.async_backend else None)
+        self.worker = None
+        if self.async_backend:
+            self._worker_groups()
+            self.worker = bworker.BackendWorker(cfg, self.device, self._worker_blk)
         self._last_loop_kf = -(10 ** 9)
         # Loop-merge generation: bumped when a loop-closure result merges
         # (the pose graph rewrites every keyframe). Jobs are stamped with it;
@@ -438,6 +453,68 @@ class SLAMSession:
         # frame: the insert and the backend pass land in different frame
         # slots, so no frame waits behind a whole keyframe burst
         self._deferred_job: Optional[bworker.BackendJob] = None
+        # threaded and sharded: the agreement the last call started
+        self._agreement = None
+
+    def _worker_groups(self):
+        """A threaded sharded session's process groups over its `model`
+        ranks, unless it holds them already: the worker's (the backend's
+        collectives, on the session's backend) and a gloo one for the
+        per-call agreement. Collective over the whole world (`new_group`):
+        every rank makes them at the same call."""
+        if self._blk is None or self._worker_blk is not None:
+            return
+        axis = self._blk.axis
+        group = pmesh.axis_group(self.mesh, axis, timeout=pmesh.WORKER_TIMEOUT)
+        self._host_group = pmesh.axis_group(self.mesh, axis, backend="gloo")
+        self._worker_blk = dataclasses.replace(self._blk, group=group)
+
+    def _agreement_start(self):
+        """Start the agreement of the threaded sharded session: a MIN
+        all-reduce over the host group of this rank's (no pass in flight, a
+        result pending, no result pending), in the background. -> what
+        `_agreement_end` takes."""
+        idle, pending = self.worker.ended()
+        flags = torch.tensor([idle, pending, not pending], dtype=torch.int32)
+        work = torch.distributed.all_reduce(
+            flags, op=torch.distributed.ReduceOp.MIN, group=self._host_group,
+            async_op=True)
+        return work, flags, idle
+
+    def _agreement_end(self, work, flags, idle_here: bool):
+        """-> (every rank's pass had ended when the agreement started, the
+        result to merge). A rank takes its result only when every rank's
+        pass has ended (a pass that ended stays pending until taken, so it
+        is still there); a result that some rank lacks (its pass failed) is
+        dropped on every rank. `idle_here`: this rank's own flag."""
+        work.wait()
+        all_idle, all_pending, none_pending = flags.tolist()
+        if not all_idle:
+            if idle_here:
+                log.debug("backend result held: a pass on another rank has not ended")
+            return False, None
+        r = self.worker.poll()
+        if not (all_pending or none_pending):
+            log.error("backend result dropped: the pass failed on another rank")
+            self.worker.skipped += 1
+            r = None
+        return True, r
+
+    def _agree_pending(self):
+        """Merge what the agreement started at the previous call settled,
+        if one was started."""
+        started, self._agreement = self._agreement, None
+        if started is not None:
+            self._apply_backend(self._agreement_end(*started)[1])
+
+    def _stop_worker(self):
+        """Drain and stop the backend worker; its process groups stay."""
+        if self.worker is not None:
+            try:
+                self.sync_backend()
+            finally:
+                self.worker.stop()
+                self.worker = None
 
     # ------------------------------------------------------------- warmup
     def warmup(self):
@@ -525,12 +602,21 @@ class SLAMSession:
             # merge finished backend work first: a snapshot then holds every
             # earlier correction. `advance` promotes a waiting job after the
             # merge, so the generation gate sees the merged state; then the
-            # deferred job of the last insert goes in.
-            self._apply_backend(self.worker.poll())
+            # deferred job of the last insert goes in. Sharded, a result
+            # merges only once every rank's pass has ended, by the agreement
+            # the previous call started; while a job is in the worker, each
+            # call starts the next one (its all-reduce runs meanwhile, so
+            # no call waits for the other ranks).
+            if self._host_group is None:
+                self._apply_backend(self.worker.poll())
+            else:
+                self._agree_pending()
             self.worker.advance(self._loop_gen, self._allow_loop)
             if self._deferred_job is not None:
                 job, self._deferred_job = self._deferred_job, None
                 self.worker.submit(job)
+            if self._host_group is not None and self.worker.busy():
+                self._agreement = self._agreement_start()
         self.flush_pipeline()  # the previous frame's decisions
 
         if self.prev_pyr is None:
@@ -783,22 +869,28 @@ class SLAMSession:
 
         `final_pass=True` also runs one inline backend pass over the drained
         map: under replace-with-newest the last keyframes of a burst may
-        otherwise never get a BA / loop pass."""
+        otherwise never get a BA / loop pass. Threaded and sharded, every
+        rank drains alike (an agreement for each job), and a pass that has
+        not ended on some rank within `timeout` raises `TimeoutError` on
+        every rank."""
         self.flush_pipeline()
         if self.worker is not None:
             if self._deferred_job is not None:
                 job, self._deferred_job = self._deferred_job, None
                 self.worker.submit(job)
             deadline = time.monotonic() + timeout
-            self._apply_backend(self.worker.poll())
-            self.worker.advance(self._loop_gen, self._allow_loop)
-            while self.worker.busy():
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    log.error("sync_backend drain timed out")
-                    break
-                self._apply_backend(self.worker.flush(remaining))
+            if self._host_group is not None:
+                self._drain_agreed(deadline, timeout)
+            else:
+                self._apply_backend(self.worker.poll())
                 self.worker.advance(self._loop_gen, self._allow_loop)
+                while self.worker.busy():
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        log.error("sync_backend drain timed out")
+                        break
+                    self._apply_backend(self.worker.flush(remaining))
+                    self.worker.advance(self._loop_gen, self._allow_loop)
         if final_pass and self._n_kf_host >= 3:
             res = bworker.backend_pass(
                 self.map, self.edges, self.n_edges, self.last_kf_idx, self.cfg,
@@ -808,12 +900,32 @@ class SLAMSession:
             res.generation = self._loop_gen
             self._apply_backend(res)
 
+    def _drain_agreed(self, deadline: float, timeout: float):
+        """The threaded sharded session's drain: every rank merges the same
+        results at the same steps (the worker's state agrees across ranks,
+        so the loop turns alike everywhere)."""
+        self._agree_pending()
+        while True:
+            self.worker.wait(max(deadline - time.monotonic(), 0.0))
+            ended, r = self._agreement_end(*self._agreement_start())
+            if not ended:
+                raise TimeoutError(
+                    f"sync_backend: a rank's backend pass did not end within {timeout} s")
+            self._apply_backend(r)
+            self.worker.advance(self._loop_gen, self._allow_loop)
+            if not self.worker.busy():
+                return
+
     def close(self):
-        """Stop the backend worker (its in-flight job is drained first)."""
-        if self.worker is not None:
-            self.sync_backend()
-            self.worker.stop()
-            self.worker = None
+        """Stop the backend worker (its in-flight job is drained first), then
+        leave the worker's process groups of a threaded sharded session."""
+        try:
+            self._stop_worker()
+        finally:
+            if self._worker_blk is not None:
+                for group in (self._worker_blk.group, self._host_group):
+                    torch.distributed.destroy_process_group(group)
+                self._worker_blk = self._host_group = None
 
     def flush_pipeline(self):
         """Finalize the pending frame's decisions and stats."""
@@ -894,9 +1006,10 @@ class SLAMSession:
         frame mode; the worker, if any, is drained and stopped first. What
         a session allocates once is kept: the pinned upload ring (a slot's
         event still guards its last copy), the frame graph with its memory
-        pool, and the static tensors it reads, which are set to a fresh
-        session's values in place (a grown ring keeps its size)."""
-        self.close()
+        pool, the static tensors it reads, which are set to a fresh
+        session's values in place (a grown ring keeps its size), and the
+        worker's process groups."""
+        self._stop_worker()
         self._fresh()
 
     # ------------------------------------------------------------ outputs

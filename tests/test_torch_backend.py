@@ -24,6 +24,7 @@ from slam_rgbd_tpu_torch.backend import ba as tba
 from slam_rgbd_tpu_torch.backend import loop as tloop
 from slam_rgbd_tpu_torch.backend import pose_graph as tpg
 from slam_rgbd_tpu_torch.core import se3 as tse3
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -12,9 +12,12 @@ programs finish, and its keyframes with it), and `kf_min_trans` 0.2 m /
 revisit fails association and loops close; two ICP levels keep it short.
 Keyframes, the frames that insert them, loops and the frames their merges
 land on are equal; poses agree to 1e-3 m. The JAX run happens once, in a
-module fixture. The threaded session's tests are in
+module fixture, while the port's session runs on a thread of its own (the
+two share nothing but the numpy frames). The threaded session's tests are in
 `tests/test_torch_async_session.py`.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,7 @@ from slam_rgbd_tpu.runtime import session as jsess
 from slam_rgbd_tpu_torch import SLAMSession
 from slam_rgbd_tpu_torch.core import config as tc
 from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -67,8 +71,25 @@ def _summary(sess, ts_est):
         lost=sess.state.lost, poses=ts_est[1])
 
 
+def _port_inline(frames):
+    sess = SLAMSession(_drift_cfg(tc), device="cpu")
+    for f in frames:
+        sess.process_frame(*f)
+    sess.flush_pipeline()
+    return _summary(sess, sess.poses())
+
+
 @pytest.fixture(scope="module")
-def jax_inline(sweep):
+def port_inline(sweep):
+    """The port's inline session over the sweep, started on a thread:
+    -> a future of its summary."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(_port_inline, sweep[0])
+        yield fut
+
+
+@pytest.fixture(scope="module")
+def jax_inline(sweep, port_inline):
     frames, _ = sweep
     sess = jsess.SLAMSession(_drift_cfg(jc))
     for ts, d, c in frames:
@@ -77,13 +98,9 @@ def jax_inline(sweep):
     return _summary(sess, sess.poses())
 
 
-def test_inline_session_matches_jax(sweep, jax_inline):
-    frames, gt = sweep
-    sess = SLAMSession(_drift_cfg(tc), device="cpu")
-    for f in frames:
-        sess.process_frame(*f)
-    sess.flush_pipeline()
-    got = _summary(sess, sess.poses())
+def test_inline_session_matches_jax(sweep, port_inline, jax_inline):
+    _, gt = sweep
+    got = port_inline.result(timeout=600)
     want = jax_inline
     assert got["loops"] == want["loops"] >= 1
     assert got["merges"] == want["merges"]

@@ -15,10 +15,13 @@ float differences; the port's own feature stage is compared separately).
 The JAX tracker runs its kernel path (`backend="pallas"`, the batched kernel
 in interpret mode).
 
-Then `BatchSession(device="cpu")` end to end with its own features.
+Then `BatchSession(device="cpu")` end to end with its own features. Those
+runs involve no JAX: they start on a thread of their own when the module
+starts and run while the JAX step programs do.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +44,7 @@ from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
 from slam_rgbd_tpu_torch.ops import hamming as th
 from slam_rgbd_tpu_torch.runtime import batch_session as tbs
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -313,7 +317,7 @@ def test_batch_loop_close_matches_jax(scenario):
     assert torch.equal(Tw2, bs.T_world) and int(n2[0]) == 4
 
 
-def test_batch_reloc_matches_jax(frames, scenario, monkeypatch):
+def test_batch_reloc_matches_jax(frames, scenario, port_runs, monkeypatch):
     """Sequence B lost at frame 6 with an estimate off by 5 cm / 2 deg, A
     masked out: both accept B only; T to 1e-4 (other minimal triples, the
     same consensus). The port's feature stage is given the JAX output."""
@@ -333,6 +337,7 @@ def test_batch_reloc_matches_jax(frames, scenario, monkeypatch):
         desc = interop.Descriptors(packed=None, signs=torch.tensor(signs[1]), angle=None)
         return kp, desc, torch.tensor(pts[1]), torch.tensor(ok[1])
 
+    port_runs.result(timeout=600)  # the patch below would reach the runs' sessions
     monkeypatch.setattr(tbs, "_features", jax_features)
     bs = _load(before)
     launches = th.hamming_top2.launches
@@ -469,12 +474,56 @@ def _run(cfg, seqs, n, damage=None):
     return bs
 
 
-@pytest.fixture(scope="module")
-def two_runs(frames):
+def _loop_runs():
+    """An out-and-back sweep under injected odometry drift at 160x120 and a
+    forward orbit beside it, the loop search on; the sweep alone with it
+    off. -> (on, off, ground truth)."""
+    cam = CameraIntrinsics(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
+    from slam_rgbd_tpu_torch.io.synthetic import SyntheticSequence
+
+    n = 60
+    drift = (0.012, 0.0, 0.006, 0.0, 0.006, 0.0)
+    cfg = SLAMConfig(
+        camera=cam, orb=ORBConfig(n_features=256, n_levels=4),
+        icp=ICPConfig(levels=2, iters=(4, 3), window_px=(4, 2), drift_xi=drift),
+        keyframes=KeyframeConfig(max_keyframes=32, max_map_points=4096,
+                                 kf_min_trans=0.02, kf_min_rot_deg=2.0,
+                                 kf_min_gap_frames=6),
+        ba=BAConfig(window=4, iters=3, loop_min_interval=3, loop_cooldown_kf=2),
+    )
+    sweep = SyntheticSequence(n, cam, step_t=0.015, step_r=0.012, sweep=True, device="cpu")
+    fwd = SyntheticSequence(n, cam, step_t=0.015, step_r=0.012, device="cpu")
+    fr = [(sweep.frame(i), fwd.frame(i)) for i in range(n)]
+    seqs = [([f[b][1] for f in fr], [f[b][2] for f in fr]) for b in range(2)]
+    gt = np.stack([sweep.groundtruth(), fwd.groundtruth()])
+    on = _run(cfg, seqs, n)
+    off = _run(dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, loop_min_score=2.0)),
+               seqs[:1], n)
+    return on, off, gt
+
+
+def _port_runs(frames) -> dict:
+    """Every end-to-end run of the module: the same sequence twice, A beside
+    B, A beside a damaged B, and the loop runs."""
     depth, rgb, _, _ = frames
     a = ([d[0] for d in depth], [c[0] for c in rgb])
     b = ([d[1] for d in depth], [c[1] for c in rgb])
-    return _run(E2E, [a, a], 12), _run(E2E, [a, b], 12)
+    return {"same": _run(E2E, [a, a], 12), "diff": _run(E2E, [a, b], 12),
+            "damaged": _run(E2E, [a, b], 12, damage=(6, 1)), "loop": _loop_runs()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_runs(frames):
+    """The end-to-end runs, started on a thread when the module starts:
+    -> a future of `_port_runs`."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        yield pool.submit(_port_runs, frames)
+
+
+@pytest.fixture(scope="module")
+def two_runs(port_runs):
+    runs = port_runs.result(timeout=600)
+    return runs["same"], runs["diff"]
 
 
 def test_identical_inputs_give_equal_trajectories(two_runs, frames):
@@ -506,15 +555,14 @@ def test_different_inputs_give_their_own_results(two_runs, frames):
     assert np.abs(est - raw).max() > 1e-5
 
 
-def test_lost_sequence_relocalizes_and_its_neighbour_does_not_notice(frames, two_runs):
+def test_lost_sequence_relocalizes_and_its_neighbour_does_not_notice(frames, two_runs,
+                                                                    port_runs):
     """Frame 6 of sequence B arrives with depth in a central window only: B
     falls under the inlier gate, relocalizes against its map (on the first
     lost frame of a streak, then every fourth) and tracks again; sequence A
     is as in the undamaged run."""
-    depth, rgb, _, rel = frames
-    a = ([d[0] for d in depth], [c[0] for c in rgb])
-    b = ([d[1] for d in depth], [c[1] for c in rgb])
-    bs = _run(E2E, [a, b], 12, damage=(6, 1))
+    _, _, _, rel = frames
+    bs = port_runs.result(timeout=600)["damaged"]
     assert bs.state.lost[0] == 0 and bs.state.lost[1] >= 1
     assert bs.state.relocalized[0] == 0 and bs.state.relocalized[1] >= 1
     assert bs._lost_streak.tolist() == [0, 0]
@@ -525,31 +573,11 @@ def test_lost_sequence_relocalizes_and_its_neighbour_does_not_notice(frames, two
     assert bs.state.frames == 12
 
 
-def test_forced_loop_close_end_to_end():
+def test_forced_loop_close_end_to_end(port_runs):
     """An out-and-back sweep under injected odometry drift at 160x120: the
     sweep sequence closes a loop and ends far more accurate than with the
     loop search off; the forward sequence beside it stays finite."""
-    cam = CameraIntrinsics(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
-    from slam_rgbd_tpu_torch.io.synthetic import SyntheticSequence
-
-    n = 60
-    drift = (0.012, 0.0, 0.006, 0.0, 0.006, 0.0)
-    cfg = SLAMConfig(
-        camera=cam, orb=ORBConfig(n_features=256, n_levels=4),
-        icp=ICPConfig(levels=2, iters=(4, 3), window_px=(4, 2), drift_xi=drift),
-        keyframes=KeyframeConfig(max_keyframes=32, max_map_points=4096,
-                                 kf_min_trans=0.02, kf_min_rot_deg=2.0,
-                                 kf_min_gap_frames=6),
-        ba=BAConfig(window=4, iters=3, loop_min_interval=3, loop_cooldown_kf=2),
-    )
-    sweep = SyntheticSequence(n, cam, step_t=0.015, step_r=0.012, sweep=True, device="cpu")
-    fwd = SyntheticSequence(n, cam, step_t=0.015, step_r=0.012, device="cpu")
-    fr = [(sweep.frame(i), fwd.frame(i)) for i in range(n)]
-    seqs = [([f[b][1] for f in fr], [f[b][2] for f in fr]) for b in range(2)]
-    gt = np.stack([sweep.groundtruth(), fwd.groundtruth()])
-    on = _run(cfg, seqs, n)
-    off = _run(dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, loop_min_score=2.0)),
-               seqs[:1], n)
+    on, off, gt = port_runs.result(timeout=600)["loop"]
     assert on.state.loops[0] >= 1 and off.state.loops[0] == 0
     ate_on, ate_off = on.ate_per_sequence(gt), off.ate_per_sequence(gt[:1])
     assert np.isfinite(ate_on).all() and np.isfinite(on.poses()[1]).all()

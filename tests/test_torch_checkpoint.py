@@ -2,10 +2,12 @@
 port and a port checkpoint into the JAX session, field for field; save,
 restore and continue; the v1 migration; a capacity mismatch raises.
 
-The JAX session runs once, in a module fixture, over 8 small frames.
+The JAX session runs once, in a module fixture, over 8 small frames, the
+port's session beside it on a thread of its own.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 import json
 import os
 
@@ -22,6 +24,7 @@ from slam_rgbd_tpu_torch.backend.loop import place_signatures
 from slam_rgbd_tpu_torch.core import config as tcfg
 from slam_rgbd_tpu_torch.runtime import checkpoint as tck
 from slam_rgbd_tpu_torch.runtime.session import SLAMSession
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -57,13 +60,21 @@ def frames():
 def saved(frames, tmp_path_factory):
     """A JAX and a port session over the first N frames, each checkpointed."""
     root = tmp_path_factory.mktemp("ck")
-    js = jsess.SLAMSession(JCFG)
-    ts = SLAMSession(TCFG, device="cpu")
-    for f in frames[:N]:
-        js.process_frame(*f)
-        ts.process_frame(*f)
-    jck.save(js, str(root / "jax"))
-    tck.save(ts, str(root / "port"))
+
+    def port():
+        ts = SLAMSession(TCFG, device="cpu")
+        for f in frames[:N]:
+            ts.process_frame(*f)
+        tck.save(ts, str(root / "port"))
+        return ts
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(port)
+        js = jsess.SLAMSession(JCFG)
+        for f in frames[:N]:
+            js.process_frame(*f)
+        jck.save(js, str(root / "jax"))
+        ts = fut.result(timeout=600)
     return {"jax": (js, str(root / "jax")), "port": (ts, str(root / "port"))}
 
 

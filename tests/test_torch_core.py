@@ -23,6 +23,7 @@ from slam_rgbd_tpu_torch.core import camera as tcam
 from slam_rgbd_tpu_torch.core import se3 as tse3
 from slam_rgbd_tpu_torch.eval import trajectory as ttraj
 from slam_rgbd_tpu_torch.io import synthetic as tsyn
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one

@@ -1179,3 +1179,90 @@ def test_sharded_program_on_one_nccl_rank_on_card(nccl_mesh, cuda_device, progra
         assert torch.equal(idx, i) and torch.equal(best, b)
         assert torch.equal(ok, (b < 64.0) & (b < 0.9 * s) & args[1])
         assert int(ok.sum()) > 100
+
+
+def _with_worker_groups(sess, mesh):
+    """Put a threaded session on a mesh whose model axis is 1 into the
+    threaded sharded mode: its map on a `Block` of the whole table and its
+    worker on that block with the worker's group, beside the agreement's
+    host group (what `SLAMSession(cfg, async_backend=True, mesh=)` sets up
+    for a model axis above 1)."""
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    sess._stop_worker()
+    sess._blk = pmesh.model_block(mesh, sess.cfg.keyframes.max_map_points)
+    sess._fresh()
+    assert sess.worker.blk.group is not sess._blk.group and sess._host_group is not None
+    return sess
+
+
+@pytest.mark.cuda
+def test_threaded_session_with_worker_groups_equals_the_plain_one_on_card(cuda_device,
+                                                                          tmp_path):
+    """One rank, a (1, 1) mesh over a one-rank gloo group: the threaded
+    session with the worker's group and the host group in place (each
+    pass's collectives on the worker's group, the per-call agreement on the
+    host group) equals the plain threaded session bit for bit, both driven
+    with `sync_backend()` after every frame over 24 sweep frames with a lost
+    one."""
+    from slam_rgbd_tpu_torch.core.config import MeshConfig
+    from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+
+    frames = _sweep_with_a_lost_frame(cuda_device, 24)
+    pmesh.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, "gloo", "cuda")
+    try:
+        mesh = pmesh.make_mesh(MeshConfig(data=1, model=1), "cuda")
+        cfg = _graph_config()
+        grouped = _with_worker_groups(SLAMSession(cfg, async_backend=True, mesh=mesh),
+                                      mesh)
+        plain = SLAMSession(cfg, async_backend=True)
+        out = []
+        for sess in (grouped, plain):
+            try:
+                for ts, d, c in frames:
+                    sess.process_frame(ts, d, c)
+                    sess.sync_backend()
+                st = sess.state
+                out.append((sess.poses()[1], sess.keyframe_poses()[1],
+                            [st.keyframes, st.lost, st.relocalized, st.loops,
+                             sess.worker.completed, sess.worker.skipped,
+                             sess.map_point_count()],
+                            {k: v.cpu() for k, v in vars(sess.map).items()}))
+            finally:
+                sess.close()
+        (p1, k1, c1, m1), (p2, k2, c2, m2) = out
+        assert c1 == c2 and c1[0] >= 3 and c1[2] >= 1 and c1[4] >= 3
+        np.testing.assert_array_equal(p1, p2)
+        np.testing.assert_array_equal(k1, k2)
+        for k in m2:
+            assert torch.equal(m1[k], m2[k]), k
+        assert grouped._worker_blk is None and grouped._host_group is None
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_a_collection_during_a_capture_frees_no_graph_on_card(cuda_device):
+    """A finished session held only by a reference cycle, its frame graph
+    captured: a second session's capture, with the collector set to run at
+    almost every allocation, succeeds (the capture runs with the collector
+    off; a graph destroyed while a stream captures would invalidate the
+    capture)."""
+    import gc
+
+    frames = list(SyntheticSequence(3, CAM, sweep=True, device=cuda_device))
+    old = SLAMSession(_graph_config(), device=cuda_device)
+    for f in frames:
+        old.process_frame(*f)
+    assert old._graph.captures == 1
+    old.itself = old  # only the collector can free it now
+    del old
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        new = SLAMSession(_graph_config(), device=cuda_device)
+        for f in frames:
+            new.process_frame(*f)
+    finally:
+        gc.set_threshold(*threshold)
+    assert new._graph.captures == 1 and np.isfinite(new.poses()[1]).all()

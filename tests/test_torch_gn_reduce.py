@@ -11,7 +11,13 @@ Tolerances are those of `tests/test_icp_pallas.py:60-71`: the three
 versions sum the same float32 terms in different orders, so H and g are
 compared relative to their largest entry (atol 2e-6 and 5e-5) and sq_sum by
 rtol 1e-4. Inlier counts are exact.
+
+The JAX side of every case (its scene, the XLA stencil and the Pallas kernel
+in interpret mode) is computed once, on a small pool of threads started with
+the module; each test holds the port against its case.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,7 @@ from slam_rgbd_tpu_torch.core import camera as tcam
 from slam_rgbd_tpu_torch.interop import pyramid_from_numpy
 from slam_rgbd_tpu_torch.odometry import icp as ticp
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one
@@ -70,8 +77,8 @@ def _port_planes(src, tgt):
     return ticp.level_planes(s)[: tg.SRC_CHANNELS].contiguous(), ticp.level_planes(t)
 
 
-def _reduce_three(cam, radius, T, src, tgt, mu=None):
-    """(XLA stencil, Pallas interpret, port plain) results for one level."""
+def _jax_two(cam, radius, T, src, tgt, mu=None):
+    """(XLA stencil, Pallas interpret, (mu_u, mu_v)) for one level."""
     cfg = ICPConfig(levels=1, iters=(1,), window_px=(radius,))
     h, w = cam.height, cam.width
     mu_u, mu_v = _mu(T, src, cam) if mu is None else (jnp.int32(mu[0]), jnp.int32(mu[1]))
@@ -87,11 +94,23 @@ def _reduce_three(cam, radius, T, src, tgt, mu=None):
         ip.build_target_planes(tgt_j, mu_u, mu_v, radius, th, n_tiles, w_pad),
         cam, cfg, radius, (h, w), interpret=True,
     )
+    return jax.tree.map(np.asarray, (xla, pallas)) + ((int(mu_u), int(mu_v)),)
+
+
+def _port(cam, radius, T, src, tgt, mu):
+    """The port's plain reduction for one level at the shift `mu`."""
+    cfg = ICPConfig(levels=1, iters=(1,), window_px=(radius,))
     sp, tp = _port_planes(src, tgt)
-    mu_t = torch.tensor([float(mu_u), float(mu_v)])
-    port = tg.gn_reduce(torch.from_numpy(np.asarray(T, np.float32)), mu_t, sp,
+    mu_t = torch.tensor([float(mu[0]), float(mu[1])])
+    return tg.gn_reduce(torch.from_numpy(np.asarray(T, np.float32)), mu_t, sp,
                         tp, cam, cfg, radius)
-    return xla, pallas, port
+
+
+def _reduce_three(case):
+    """(XLA stencil, Pallas interpret, port plain) results of a case of
+    `jax_cases`: (cam, radius, T, src, tgt, (xla, pallas, mu))."""
+    cam, radius, T, src, tgt, (xla, pallas, mu) = case
+    return xla, pallas, _port(cam, radius, T, src, tgt, mu)
 
 
 def _assert_close(got, want):
@@ -123,24 +142,56 @@ SHAPES = [  # the cases of tests/test_icp_pallas.py:75-103
 ]
 
 
-@pytest.mark.parametrize("case", range(len(SHAPES)), ids=["128x64r2", "512x200r2", "192x96r4"])
-def test_reference_matches_jax_shapes(case):
-    cam, radius, shift, seed, T = SHAPES[case]
+def _shape_case(i):
+    cam, radius, shift, seed, T = SHAPES[i]
     src, tgt = _scene(cam, shift=shift, seed=seed)
-    xla, pallas, port = _reduce_three(cam, radius, T, src, tgt)
+    return cam, radius, T, src, tgt, _jax_two(cam, radius, T, src, tgt)
+
+
+def _edge_case():
+    cam, radius = SHAPES[0][0], 2
+    src, tgt = _scene(cam)
+    T = _t(yaw_z=np.deg2rad(3.3))
+    return cam, radius, T, src, tgt, _jax_two(cam, radius, T, src, tgt)
+
+
+def _corner_case(col):
+    """Source column `col` alone against the target with the hole at
+    column 60, at a flow of 0.9995 px and mu = (1, 0)."""
+    cam = SHAPES[0][0]
+    src, tgt = _scene(cam, hole_col=60, flat=True)
+    T = _t(tx=0.9995 * 1.5 / cam.fx)
+    only = dict(src, valid=np.zeros_like(src["valid"]))
+    only["valid"][:, col] = src["valid"][:, col]
+    return cam, 2, T, only, tgt, _jax_two(cam, 2, T, only, tgt, mu=(1, 0))
+
+
+@pytest.fixture(scope="module")
+def jax_cases():
+    """Every case's scene and JAX results, started on three threads with the
+    module: -> {case: future of (cam, radius, T, src, tgt, (xla, pallas,
+    mu))}."""
+    jobs = {("shape", i): (_shape_case, i) for i in (1, 2, 0)}
+    jobs.update({("edge",): (_edge_case,), ("corner", 61): (_corner_case, 61),
+                 ("corner", 60): (_corner_case, 60)})
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        yield {k: pool.submit(*job) for k, job in jobs.items()}
+
+
+@pytest.mark.parametrize("case", range(len(SHAPES)), ids=["128x64r2", "512x200r2", "192x96r4"])
+def test_reference_matches_jax_shapes(case, jax_cases):
+    xla, pallas, port = _reduce_three(jax_cases[("shape", case)].result(timeout=600))
     assert int(port[2]) > 1000
     _assert_close(port, xla)
     _assert_close(port, pallas)
 
 
-def test_window_edge_displacement():
+def test_window_edge_displacement(jax_cases):
     """A roll about the optical axis spreads the residual displacement over
     the window edge: some pixels fall just inside [-R, R+1], some just
     outside. All three versions must keep and drop the same pixels."""
-    cam, radius = SHAPES[0][0], 2
-    src, tgt = _scene(cam)
-    T = _t(yaw_z=np.deg2rad(3.3))
-    mu_u, mu_v = _mu(T, src, cam)
+    case = jax_cases[("edge",)].result(timeout=600)
+    cam, radius, T, src, tgt, (_, _, (mu_u, mu_v)) = case
     _, up, vp, _ = ticp._project_level(
         torch.from_numpy(T), torch.from_numpy(src["vertices"]), cam)
     u, v = tcam.pixel_grid(cam.height, cam.width)
@@ -148,12 +199,12 @@ def test_window_edge_displacement():
     valid = torch.from_numpy(src["valid"])
     assert int(((disp > radius + 1) & (disp < radius + 2) & valid).sum()) > 50
     assert int(((disp > radius) & (disp < radius + 1) & valid).sum()) > 50
-    xla, pallas, port = _reduce_three(cam, radius, T, src, tgt)
+    xla, pallas, port = _reduce_three(case)
     _assert_close(port, xla)
     _assert_close(port, pallas)
 
 
-def test_invalid_corner_below_weight_gate():
+def test_invalid_corner_below_weight_gate(jax_cases):
     """A corner of weight < 0.001 may be invalid and the pixel still passes
     (`wsum > 0.999` and `sum w*valid > 0.999`, icp_pallas.py:263,305).
 
@@ -162,14 +213,11 @@ def test_invalid_corner_below_weight_gate():
     column 60 breaks its normal), so source column 61 samples an invalid
     corner at weight 0.0005 and must still count; column 60, whose heavy
     corner is invalid, must not."""
-    cam = SHAPES[0][0]
-    src, tgt = _scene(cam, hole_col=60, flat=True)
-    assert not tgt["valid"][:, 59:62].any() and tgt["valid"][1:-1, 62].all()
-    T = _t(tx=0.9995 * 1.5 / cam.fx)
     for col, expect_pass in ((61, True), (60, False)):
-        only = dict(src, valid=np.zeros_like(src["valid"]))
-        only["valid"][:, col] = src["valid"][:, col]
-        xla, pallas, port = _reduce_three(cam, 2, T, only, tgt, mu=(1, 0))
+        case = jax_cases[("corner", col)].result(timeout=600)
+        tgt, only = case[4], case[3]
+        assert not tgt["valid"][:, 59:62].any() and tgt["valid"][1:-1, 62].all()
+        xla, pallas, port = _reduce_three(case)
         n_src = int(only["valid"].sum())
         assert int(port[2]) == (n_src if expect_pass else 0), (col, int(port[2]))
         _assert_close(port, xla)

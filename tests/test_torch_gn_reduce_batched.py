@@ -12,8 +12,11 @@ which needs a card.
 Tolerances: the reductions sum the same float32 terms in different orders,
 so H and g are compared relative to their largest entry (atol 2e-6 and 5e-5,
 as `tests/test_icp_pallas.py:60-71`), sq_sum by rtol 1e-4, inlier counts
-exactly; poses after the GN iterations to 1e-5.
+exactly; poses after the GN iterations to 1e-5. The JAX tracker's two
+results are computed on two threads started with the batch fixture.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from slam_rgbd_tpu.ops import icp_pallas as ip
 from slam_rgbd_tpu_torch.interop import pyramid_from_numpy
 from slam_rgbd_tpu_torch.odometry import icp as ticp
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one
@@ -172,11 +176,26 @@ def batch():
     return prev_j, curr_j, to_port(prev_j), to_port(curr_j), prior
 
 
-def test_track_frame_batched_matches_jax(batch):
+def _t_prev():
+    return np.stack([jsyn.orbit_trajectory(4)[3]] * 3)
+
+
+@pytest.fixture(scope="module")
+def jax_tracker(batch):
+    """The JAX `track_frame_batched` and `icp_align_batched` on the batch,
+    each compiling its own program on a thread: -> their futures."""
+    prev_j, curr_j, _, _, prior = batch
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        yield {"track": pool.submit(jicp.track_frame_batched, prev_j, curr_j,
+                                    jnp.asarray(_t_prev()), jnp.asarray(prior), CAM, CFG),
+               "align": pool.submit(jicp.icp_align_batched, curr_j, prev_j,
+                                    jnp.asarray(prior), CAM, CFG)}
+
+
+def test_track_frame_batched_matches_jax(batch, jax_tracker):
     prev_j, curr_j, prev_t, curr_t, prior = batch
-    T_prev = np.stack([jsyn.orbit_trajectory(4)[3]] * 3)
-    Tw_j, Tm_j, res_j = jicp.track_frame_batched(
-        prev_j, curr_j, jnp.asarray(T_prev), jnp.asarray(prior), CAM, CFG)
+    T_prev = _t_prev()
+    Tw_j, Tm_j, res_j = jax_tracker["track"].result(timeout=600)
     Tw_t, Tm_t, res_t = ticp.track_frame_batched(
         prev_t, curr_t, torch.from_numpy(T_prev), torch.from_numpy(prior), CAM, CFG)
     np.testing.assert_allclose(Tw_t.numpy(), np.asarray(Tw_j), atol=1e-5)
@@ -191,14 +210,14 @@ def test_track_frame_batched_matches_jax(batch):
     assert 0.002 < float(torch.linalg.norm(Tm_t[0, :3, 3])) < CFG.max_step_m
 
 
-def test_icp_align_batched_matches_jax_and_single(batch, monkeypatch):
+def test_icp_align_batched_matches_jax_and_single(batch, jax_tracker, monkeypatch):
     """`icp_align_batched` against the JAX one, one `gn_step_batched` call
     per GN iteration for all problems (4 + 3): at the coarsest level the
     3 starts x 3 sequences as nine problems over the three plane sets, then
     three problems; and each problem against the port's own single
     `icp_align` (1e-6: the same arithmetic, batched matrix products)."""
     prev_j, curr_j, prev_t, curr_t, prior = batch
-    want = jicp.icp_align_batched(curr_j, prev_j, jnp.asarray(prior), CAM, CFG)
+    want = jax_tracker["align"].result(timeout=600)
     calls = []
     real = tg.gn_step_batched
 

@@ -21,6 +21,7 @@ from slam_rgbd_tpu.odometry import icp as jicp
 from slam_rgbd_tpu_torch.core import se3 as tse3
 from slam_rgbd_tpu_torch.odometry import icp as ticp
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one

@@ -21,6 +21,7 @@ from slam_rgbd_tpu_torch import interop
 from slam_rgbd_tpu_torch.features import match as tmatch
 from slam_rgbd_tpu_torch.mapping import map as tmap
 from slam_rgbd_tpu_torch.ops import hamming as th
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

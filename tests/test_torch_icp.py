@@ -6,8 +6,12 @@ coarsest level's three starts stacked as problems of one batched GN step.
 Both follow the same dominant-flow schedule, so they agree far inside the
 5e-4 that separates the JAX package's own two schedules: poses to 1e-5
 (float32 sums in another order, compounded over the GN iterations),
-inlier counts exactly.
+inlier counts exactly. The JAX results are computed once, on three threads
+started with the module (each compiles its own program).
 """
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ from slam_rgbd_tpu.odometry import icp as jicp
 from slam_rgbd_tpu_torch.interop import pyramid_from_numpy
 from slam_rgbd_tpu_torch.odometry import icp as ticp
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one
@@ -56,12 +61,46 @@ def _prior():
     return T
 
 
+def _rolled_prior():
+    """A prior rolled 0.3 rad about the optical axis."""
+    prior = np.eye(4, dtype=np.float32)
+    prior[:2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
+    return prior
+
+
+def _jax_track(pairs):
+    out = {}
+    for case in ("kept", "clamped"):
+        (prev_j, _), (curr_j, _) = pairs[case]
+        out[case] = jicp.track_frame(prev_j, curr_j,
+                                     jnp.asarray(jsyn.orbit_trajectory(4)[3]),
+                                     jnp.asarray(_prior()), CAM, CFG)
+    return out
+
+
+def _jax_align(pairs, cfg, prior):
+    (prev_j, _), (curr_j, _) = pairs["kept"]
+    return jicp.icp_align(curr_j, prev_j, jnp.asarray(prior), CAM, cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(pairs):
+    """The JAX tracker's results, started on three threads with the module:
+    -> futures of track_frame on both pairs, icp_align with the small prior
+    and the rolled one, icp_align with one start."""
+    one = dataclasses.replace(CFG, hypotheses=1)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        yield {"track": pool.submit(_jax_track, pairs),
+               "align": pool.submit(
+                   lambda: [_jax_align(pairs, CFG, p) for p in (_prior(), _rolled_prior())]),
+               "one": pool.submit(_jax_align, pairs, one, _prior())}
+
+
 @pytest.mark.parametrize("case", ["kept", "clamped"])
-def test_track_frame_matches_jax(pairs, case):
+def test_track_frame_matches_jax(pairs, jax_refs, case):
     (prev_j, prev_t), (curr_j, curr_t) = pairs[case]
     T_prev = jsyn.orbit_trajectory(4)[3]
-    Tw_j, Tm_j, res_j = jicp.track_frame(prev_j, curr_j, jnp.asarray(T_prev),
-                                         jnp.asarray(_prior()), CAM, CFG)
+    Tw_j, Tm_j, res_j = jax_refs["track"].result(timeout=600)[case]
     Tw_t, Tm_t, res_t = ticp.track_frame(prev_t, curr_t, torch.from_numpy(T_prev),
                                          torch.from_numpy(_prior()), CAM, CFG)
     np.testing.assert_allclose(Tw_t.numpy(), np.asarray(Tw_j), atol=1e-5)
@@ -93,12 +132,12 @@ def _count_steps(monkeypatch):
     return calls
 
 
-def test_icp_align_matches_jax_and_counts_reductions(pairs, monkeypatch):
+def test_icp_align_matches_jax_and_counts_reductions(pairs, jax_refs, monkeypatch):
     """`icp_align` itself, and one GN step per iteration: the three starts
     of the coarsest level as problems of one batched call over one set of
     planes (made by `expand`), then the finer level, so 4 + 3 calls."""
     (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
-    want = jicp.icp_align(curr_j, prev_j, jnp.asarray(_prior()), CAM, CFG)
+    want = jax_refs["align"].result(timeout=600)[0]
     calls = _count_steps(monkeypatch)
     got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(_prior()), CAM, CFG)
     assert calls[:4] == [("gn_step_batched", (3,), (3, 8, 48, 64))] * 4
@@ -107,13 +146,11 @@ def test_icp_align_matches_jax_and_counts_reductions(pairs, monkeypatch):
     assert int(got.inliers) == int(want.inliers)
 
 
-def test_icp_align_single_start_matches_jax(pairs, monkeypatch):
+def test_icp_align_single_start_matches_jax(pairs, jax_refs, monkeypatch):
     """`hypotheses` 1: no stacking, every iteration a single `gn_step`."""
-    import dataclasses
-
     one = dataclasses.replace(CFG, hypotheses=1)
     (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
-    want = jicp.icp_align(curr_j, prev_j, jnp.asarray(_prior()), CAM, one)
+    want = jax_refs["one"].result(timeout=600)
     calls = _count_steps(monkeypatch)
     got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(_prior()), CAM, one)
     assert [c[0] for c in calls] == ["gn_step"] * 7
@@ -121,17 +158,14 @@ def test_icp_align_single_start_matches_jax(pairs, monkeypatch):
     assert int(got.inliers) == int(want.inliers)
 
 
-def test_icp_align_identity_start_wins_over_a_bad_prior(pairs):
+def test_icp_align_identity_start_wins_over_a_bad_prior(pairs, jax_refs):
     """A prior rolled 0.3 rad about the optical axis, which no flow shift
     absorbs: of the stacked starts the identity (problem 1) has the most
     inliers at the coarsest level and seeds the finer one, as in the JAX
     package."""
-    import dataclasses
-
     (prev_j, prev_t), (curr_j, curr_t) = pairs["kept"]
-    prior = np.eye(4, dtype=np.float32)
-    prior[:2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
-    want = jicp.icp_align(curr_j, prev_j, jnp.asarray(prior), CAM, CFG)
+    prior = _rolled_prior()
+    want = jax_refs["align"].result(timeout=600)[1]
     got = ticp.icp_align(curr_t, prev_t, torch.from_numpy(prior), CAM, CFG)
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
     assert int(got.inliers) == int(want.inliers)

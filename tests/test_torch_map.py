@@ -22,6 +22,7 @@ from slam_rgbd_tpu.mapping import map as jmap
 from slam_rgbd_tpu_torch import interop
 from slam_rgbd_tpu_torch.backend.pose_graph import EdgeList
 from slam_rgbd_tpu_torch.mapping import map as tmap
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

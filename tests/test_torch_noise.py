@@ -20,6 +20,7 @@ from slam_rgbd_tpu.core.config import CameraIntrinsics as JCam
 from slam_rgbd_tpu.io import synthetic as jsyn
 from slam_rgbd_tpu_torch.core.config import CameraIntrinsics
 from slam_rgbd_tpu_torch.io import synthetic as tsyn
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

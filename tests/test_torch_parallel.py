@@ -44,6 +44,7 @@ from slam_rgbd_tpu_torch.odometry import icp as ticp
 from slam_rgbd_tpu_torch.ops import hamming as th
 from slam_rgbd_tpu_torch.parallel import dist as tdist
 from slam_rgbd_tpu_torch.parallel import mesh as tmesh
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 CAM = CameraIntrinsics(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 CAM_ICP = CameraIntrinsics(fx=114.1, fy=114.1, cx=63.5, cy=47.5, width=128, height=96)

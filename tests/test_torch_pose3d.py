@@ -15,6 +15,7 @@ import torch
 from slam_rgbd_tpu.core import se3 as jse3
 from slam_rgbd_tpu.features import pose3d as jp3
 from slam_rgbd_tpu_torch.features import pose3d as tp3
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

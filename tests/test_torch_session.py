@@ -27,6 +27,7 @@ from slam_rgbd_tpu_torch import TrackingSession
 from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
 from slam_rgbd_tpu_torch.interop import pyramid_to_numpy, state_from_numpy
 from slam_rgbd_tpu_torch.ops import gn_reduce as tg
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 # one intra-op thread: torch's spinning thread pool would otherwise take
 # every core from the test workers running beside this one

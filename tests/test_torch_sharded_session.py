@@ -14,7 +14,11 @@ inputs (made here from a seed) and run every check of the slice:
   (c) `backend_pass` on a loop scene: BA, a closed loop, fusion, global BA;
   (d) the session at `max_decision_lag=1` over 12 frames, its `reset()`,
       and checkpoints across the sharded and the unsharded session;
-  (f) `async_backend=True` with a model axis of 2 raises;
+  (f) the threaded sharded session, `async_backend=True` with a model axis
+      of 2: forced by `sync_backend()` after every frame; free-running
+      behind `PipelineRunner(threads=True)` with rank 1's passes slowed (its
+      `backend_pass` sleeps before and after each pass); the worker's
+      process groups, and `close()` with a pass in flight;
   (g) a mesh whose model axis is 1 is the unsharded path.
 
 Meanwhile this process computes the references: the port's unsharded
@@ -24,12 +28,16 @@ sharded session on a (1, 2) mesh of the conftest's virtual CPU devices.
 Against the unsharded port everything is bit for bit (the blocks gathered);
 against the JAX sharded session the bounds of
 `tests/test_batch_session.py::test_map_block_sharded_session_mode`: the same
-keyframes, poses within 1 cm, ATE under 2 cm.
+keyframes, poses within 1 cm, ATE under 2 cm. The free-running threaded runs
+are held against each other: both ranks merge the same results at the same
+calls. Every wait on the ranks has a deadline, so a deadlock fails a test.
 """
 
 import dataclasses
 import os
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -48,7 +56,9 @@ from slam_rgbd_tpu_torch.mapping import map as tmap
 from slam_rgbd_tpu_torch.parallel import dist as tdist
 from slam_rgbd_tpu_torch.parallel import mesh as tmesh
 from slam_rgbd_tpu_torch.runtime import checkpoint as tckpt
+from slam_rgbd_tpu_torch.runtime.runner import PipelineRunner
 from slam_rgbd_tpu_torch.viz.pointcloud import map_to_pointcloud
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -57,6 +67,10 @@ CAM = CameraIntrinsics(fx=96.0, fy=96.0, cx=63.5, cy=47.5, width=128, height=96)
 N_FRAMES = 12  # the session's frames: 10, a checkpoint, then 2 more
 N_CKPT = 10
 P_SCENE, K_SCENE = 512, 64  # the map scenes of (a) and (b)
+SLOW_S = 0.3  # (f) rank 1's backend pass sleeps this long before and after
+FREE_DEADLINE_S = 120.0  # (f) a free-running threaded run ends within this
+CLOSE_DEADLINE_S = 30.0  # (f) `close()` with a pass in flight returns within this
+RANKS_DEADLINE_S = 400.0  # the ranks end within this
 
 
 def session_config(pkg, model: int = 2):
@@ -265,6 +279,10 @@ def _result_arrays(r: tworker.BackendResult, gather) -> dict:
                 T_rel=r.loop_edge[2].numpy())
 
 
+def tdist_ranks(group) -> list:
+    return torch.distributed.get_process_group_ranks(group)
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
@@ -280,6 +298,56 @@ def _drive(sess, x: dict, frames: range) -> None:
     for i in frames:
         sess.process_frame(float(x["frames/ts"][i]), x["frames/depth"][i],
                            x["frames/rgb"][i])
+
+
+def _drive_synced(sess, x: dict) -> None:
+    """Every frame, then `sync_backend()`: each keyframe's pass merges at
+    the call after its insert (the forced schedule)."""
+    for i in range(N_FRAMES):
+        _drive(sess, x, range(i, i + 1))
+        sess.sync_backend()
+
+
+def _merge_log(sess) -> list:
+    """(frame count, snapshot keyframe) of every result `sess` merges from
+    now on."""
+    merged = []
+    apply = sess._apply_backend
+
+    def logged(r):
+        if r is not None:
+            merged.append((sess.state.frames, r.snap_kf_idx))
+        apply(r)
+
+    sess._apply_backend = logged
+    return merged
+
+
+def _held_count(sess) -> dict:
+    """Counts, from now on, the agreements at which this rank's pass had
+    ended while another rank's had not (the merge was held back)."""
+    held = {"calls": 0}
+    end = sess._agreement_end
+
+    def watched(work, flags, idle_here):
+        ended, r = end(work, flags, idle_here)
+        held["calls"] += idle_here and not ended
+        return ended, r
+
+    sess._agreement_end = watched
+    return held
+
+
+def _threaded_arrays(sess, gather, merged: list, worker=None) -> dict:
+    """`_session_arrays` and the backend's schedule: loops, the frames
+    their merges landed on, the worker's (`worker`: of a closed session)
+    completed and skipped passes, the merges."""
+    out = _session_arrays(sess, gather)
+    st, worker = sess.state, worker or sess.worker
+    out["backend"] = np.array([st.loops, worker.completed, worker.skipped])
+    out["loop_merge_frames"] = np.array(st.loop_merge_frames, np.int64)
+    out["merges"] = np.array(merged, np.int64).reshape(-1, 2)
+    return out
 
 
 def _session_arrays(sess, gather) -> dict:
@@ -355,12 +423,70 @@ def _rank_checks(rank: int, world: int, tmp: str) -> None:
         _drive(s, x, range(N_CKPT, N_FRAMES))
         out.update({f"ckpt/{name}/{k}": v for k, v in _session_arrays(s, g).items()})
 
-    # (f) the threaded backend is not sharded yet
+    # (f) the threaded sharded session, forced: every pass merges at the
+    # call after its insert
+    forced = SLAMSession(SESSION, async_backend=True, mesh=mesh, device="cpu")
     try:
-        SLAMSession(SESSION, async_backend=True, mesh=mesh, device="cpu")
-        out["async_raised"] = np.array("")
-    except NotImplementedError as e:
-        out["async_raised"] = np.array(str(e))
+        wblk, host = forced.worker.blk, forced._host_group
+        axis = mesh.get_group("model")
+        out["groups"] = np.array([
+            wblk.group is not axis, host is not axis, host is not wblk.group,
+            forced._blk.group is axis,
+            dataclasses.replace(wblk, group=axis) == forced._blk,
+            tdist_ranks(wblk.group) == tdist_ranks(axis) == tdist_ranks(host),
+            torch.distributed.get_backend(host) == "gloo"])
+        merged = _merge_log(forced)
+        _drive_synced(forced, x)
+        out.update({f"forced/{k}": v for k, v in
+                    _threaded_arrays(forced, gather, merged).items()})
+        # reset keeps the groups: `new_group` runs once a session
+        forced.reset()
+        out["groups_kept"] = np.array([forced.worker.blk.group is wblk.group,
+                                       forced._host_group is host])
+    finally:
+        forced.close()
+    out["groups_left"] = np.array([forced._worker_blk is None, forced._host_group is None])
+
+    # free-running behind the threaded pipeline runner, rank 1's passes
+    # slowed: the ranks agree on every merge
+    if rank == 1:
+        fast = tworker.backend_pass
+
+        def slow(*args, **kw):
+            time.sleep(SLOW_S)
+            res = fast(*args, **kw)
+            time.sleep(SLOW_S)
+            return res
+
+        tworker.backend_pass = slow
+    frames = [(float(x["frames/ts"][i]), x["frames/depth"][i], x["frames/rgb"][i])
+              for i in range(N_FRAMES)]
+    runner = PipelineRunner(SESSION, iter(frames), device="cpu", mesh=mesh)
+    free, worker = runner.session, runner.session.worker
+    merged, held = _merge_log(free), _held_count(free)
+    t0 = time.monotonic()
+    runner.run(threads=True)  # ends with close(): drained, the groups left
+    out["free/seconds"] = np.array(time.monotonic() - t0)
+    out.update({f"free/{k}": v for k, v in
+                _threaded_arrays(free, gather, merged, worker).items()})
+    out["held"] = np.array(held["calls"])
+    out["dropped"] = np.array(runner.queue.dropped)
+
+    # close() with a pass in flight: the bootstrap keyframe's job goes in at
+    # frame 1 and sleeps on rank 1
+    inflight = SLAMSession(SESSION, async_backend=True, mesh=mesh, device="cpu")
+    try:
+        _drive(inflight, x, range(2))
+        out["close/busy"] = np.array(inflight.worker.busy())
+        worker = inflight.worker
+        t0 = time.monotonic()
+    finally:
+        inflight.close()
+    out["close/seconds"] = np.array(time.monotonic() - t0)
+    out["close/stopped"] = np.array([inflight.worker is None,
+                                     not worker._thread.is_alive(), worker.completed])
+    if rank == 1:
+        tworker.backend_pass = fast
     # (g) a model axis of 1
     mesh21 = tmesh.make_mesh(MeshConfig(data=world, model=1), "cpu")
     one = SLAMSession(SESSION, mesh=mesh21, device="cpu")
@@ -369,7 +495,8 @@ def _rank_checks(rank: int, world: int, tmp: str) -> None:
 
 
 # ---- the references in this process, once a module ------------------------------
-def _references(x: dict, tmp: str) -> dict:
+def _jax_reference(x: dict) -> dict:
+    """(e) The JAX package's own sharded session on the same frames."""
     ref = {}
     from slam_rgbd_tpu.core import config as jc
     from slam_rgbd_tpu.parallel.mesh import make_mesh as jmake_mesh
@@ -386,8 +513,12 @@ def _references(x: dict, tmp: str) -> dict:
     ref["jax/poses"] = np.asarray(js.poses()[1])
     ref["jax/keyframes"] = js.state.keyframes
     ref["jax/devices"] = len(js.map.pt_xyz.sharding.device_set)
+    return ref
 
-    # the unsharded port
+
+def _port_references(x: dict) -> dict:
+    """The unsharded port on the same inputs, inline and threaded."""
+    ref = {}
     for tag in ("near", "second"):
         m = interop.map_from_numpy(_sub(x, f"{tag}/map/"), "cpu")
         ins, culled, n_culled = _insert_and_cull(m, _sub(x, f"{tag}/ins/"))
@@ -406,13 +537,23 @@ def _references(x: dict, tmp: str) -> dict:
     sess = SLAMSession(session_config(tc, model=1), device="cpu")
     _drive(sess, x, range(N_FRAMES))
     ref.update({f"sess/{k}": v for k, v in _session_arrays(sess, _np).items()})
+    # (f) the threaded unsharded port under the forced schedule
+    threaded = SLAMSession(session_config(tc, model=1), async_backend=True, device="cpu")
+    try:
+        merged = _merge_log(threaded)
+        _drive_synced(threaded, x)
+        ref.update({f"forced/{k}": v for k, v in
+                    _threaded_arrays(threaded, _np, merged).items()})
+    finally:
+        threaded.close()
     return ref
 
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     """(the inputs, the ranks' results, the references). The ranks run while
-    this process computes the references: a thread waits for them."""
+    this process computes the references, the port's on a thread beside the
+    JAX session: a thread waits for the ranks."""
     x = _inputs()
     tmp = str(tmp_path_factory.mktemp("ranks"))
     np.savez(os.path.join(tmp, "inputs.npz"), **x)
@@ -425,12 +566,15 @@ def both(tmp_path_factory):
         except Exception as e:  # raised in this process below
             failed.append(e)
 
-    waiter = threading.Thread(target=ranks_run)
+    waiter = threading.Thread(target=ranks_run, daemon=True)
     waiter.start()
     try:
-        ref = _references(x, tmp)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            port = pool.submit(_port_references, x)
+            ref = _jax_reference(x)
+            ref.update(port.result(timeout=RANKS_DEADLINE_S))
     finally:
-        waiter.join(timeout=600)
+        waiter.join(timeout=RANKS_DEADLINE_S)
     assert not waiter.is_alive(), "the ranks did not finish"
     if failed:
         raise failed[0]
@@ -535,10 +679,65 @@ def test_sharded_session_meets_the_jax_sharded_session(both):
         assert ate_rmse(got["sess/poses"], x["frames/gt"])[0] < 0.02
 
 
-def test_async_backend_with_a_model_axis_raises(both):
+def test_threaded_sharded_session_equals_the_threaded_unsharded_session(both):
+    """(f) `async_backend=True` on the blocks, `sync_backend()` after every
+    frame, and the threaded unsharded session driven alike: poses, keyframe
+    poses, counts, the gathered map, the merges (at the same calls, of the
+    same keyframes) and the worker's counts bit for bit, on both ranks."""
+    _, ranks, ref = both
+    assert len(ref["forced/merges"]) >= 3 and ref["forced/backend"][1] >= 3
+    for got in ranks:
+        _equal(got, ref, "forced/")
+
+
+def test_free_running_ranks_agree_with_a_slow_rank(both):
+    """(f) Free-running behind the threaded runner, rank 1's passes slowed
+    by 2 x SLOW_S: both ranks
+    end with the same loops, loop-merge frames, merges, completed and
+    skipped passes, poses and gathered map, within FREE_DEADLINE_S. Rank 0's
+    pass ended first at some call, and the agreement held its merge back;
+    every keyframe's job was merged or counted as skipped."""
+    _, (r0, r1), _ = both
+    keys = [k for k in r0 if k.startswith("free/") and k != "free/seconds"]
+    assert keys
+    for k in keys:
+        assert np.array_equal(r0[k], r1[k]), k
+    assert int(r0["held"]) >= 1
+    assert len(r0["free/merges"]) >= 1 and r0["free/counts"][2] == 0
+    assert len(r0["free/merges"]) + r0["free/backend"][2] == r0["free/counts"][1]
+    for got in (r0, r1):
+        assert float(got["free/seconds"]) < FREE_DEADLINE_S
+
+
+def test_threaded_sharded_runner_drops_no_frame(both):
+    """(f) `PipelineRunner(cfg, frames, mesh=).run(threads=True)`: the
+    producer outruns the session, yet the queue drops no frame on either
+    rank (each rank must see every frame), and every frame is processed."""
     _, ranks, _ = both
     for got in ranks:
-        assert "9c" in str(got["async_raised"])
+        assert int(got["dropped"]) == 0 and got["free/counts"][0] == N_FRAMES
+        assert got["free/flags"].shape == (N_FRAMES,)
+
+
+def test_the_worker_has_groups_of_its_own(both):
+    """(f) The worker's process group and the agreement's gloo group are
+    neither the frontend's nor each other, over the same ranks; the
+    worker's block is the session's but for its group; `reset()` keeps
+    both groups and `close()` leaves them."""
+    _, ranks, _ = both
+    for got in ranks:
+        assert got["groups"].all(), got["groups"]
+        assert got["groups_kept"].all() and got["groups_left"].all()
+
+
+def test_close_with_a_pass_in_flight_returns(both):
+    """(f) `close()` right after a job went in (rank 1 sleeping in it)
+    drains it and stops the thread on both ranks within CLOSE_DEADLINE_S."""
+    _, ranks, _ = both
+    for got in ranks:
+        assert bool(got["close/busy"])
+        assert float(got["close/seconds"]) < CLOSE_DEADLINE_S
+        assert got["close/stopped"].tolist()[:2] == [1, 1] and got["close/stopped"][2] >= 1
 
 
 def test_a_model_axis_of_one_is_the_unsharded_path(both):

@@ -34,6 +34,7 @@ from slam_rgbd_tpu_torch.core import config as tc
 from slam_rgbd_tpu_torch.core import se3 as tse3
 from slam_rgbd_tpu_torch.mapping import map as tmap
 from slam_rgbd_tpu_torch.runtime import session as tsess
+from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -381,7 +382,7 @@ class _Gate:
     def release(self, kf):
         self.event(kf).set()
 
-    def __call__(self, m, edges, n_edges, kf_idx, cfg, n_kf=-1, allow_loop=True):
+    def __call__(self, m, edges, n_edges, kf_idx, cfg, n_kf=-1, allow_loop=True, blk=None):
         self.started.append((kf_idx, allow_loop))
         assert self.event(kf_idx).wait(10), "never released"
         if kf_idx in self.fail:
