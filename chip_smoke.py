@@ -31,8 +31,10 @@ them). Phases, each fatal on failure:
                1024 x 1024 on two keyframes' descriptors (a loop
                verification), all outputs exactly equal to the plain
                version's and to a second launch. Median device times of kernel and
-               plain version over 50 calls (CUDA events), and the least time
-               the card could take for the same work.
+               plain version over 50 calls (CUDA events), for `hamming_top2`
+               also the library comparator's (a bf16 matrix product and
+               `torch.topk`, equal distances), and the least time the card
+               could take for the same work.
                `gn_reduce_batched` / `gn_step_batched` with 8, 4 and 1
                problems (frame pairs at different poses) at the same three
                shapes, and at the coarsest the tracker's stacked starts: three
@@ -132,6 +134,15 @@ them). Phases, each fatal on failure:
                launches join the table too. Then `scaling.batch_scaling` at B = 1 / 2 / 4 /
                8 and `python -m slam_rgbd_tpu_torch benchmark --scaling` as
                a subprocess (the report names the card, one device).
+  15. benchmark - `python -m slam_rgbd_tpu_torch benchmark --out <file>` as a
+               subprocess, as a user runs it: the Astra profile at 640x480,
+               240 frames, the legs (`slam_rgbd_tpu_torch/benchmarks.py`).
+               Its JSON line printed; every key there; ATE under 5 cm on the
+               clean and the degraded sweep; at least one loop on the loop
+               leg and ATE on / off under 1; every kernel's roofline
+               fraction in (0, 1.05]; tracking above 30 frames/s; no ERROR
+               record of the port's loggers; each kernel launched in the
+               run (its launches join the kernel table).
 
 The line before the last holds the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without it.
@@ -152,6 +163,14 @@ import time
 import numpy as np
 import torch
 
+from slam_rgbd_tpu_torch.benchmarks import (
+    LOOP_LEG_DRIFT, full_map, gated_match_args, gated_work, gn_work, hamming_top2_library,
+    loop_leg_config, sweep, top2_work, tracking_only_config,
+)
+from slam_rgbd_tpu_torch.runtime.profiling import (
+    card_and_power, card_peaks, device_ms, host_ms, sol_s,
+)
+
 N_FRAMES = 240
 SMALL_FRAMES = 12
 ATE_LIMIT_M = 0.05  # BASELINE.md target
@@ -169,9 +188,6 @@ SHARD_FRAMES = 60  # the sharded session's clean frames (the sweep's first); the
 #                    one damaged (a relocalization) and one more
 AGREE_CALLS = 200  # timed calls of the threaded sharded session's agreement
 KERNEL_B = (8, 4, 1)  # problems a launch in the batched kernel's phase
-# the loop leg of the JAX package's bench: a constant twist composed onto
-# every tracked relative pose, denser keyframes, a shorter loop interval
-LOOP_LEG_DRIFT = (0.006, 0.0, 0.003, 0.0, 0.003, 0.0)
 MATCHED_SHARE_MIN = 0.5  # of a later keyframe's valid keypoints, see main_phase
 LOOP_FRAMES = 120  # the loop leg's sweep (`bench_loop_leg`'s n_frames)
 SMALL_BACKEND_FRAMES = 100
@@ -185,12 +201,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REFERENCE_ANCHORS = ("reference (JAX package, BENCH_r05.json, a TPU run): clean "
                      "sweep ATE 1.679 cm with 20 keyframes; loop leg ATE 23.2 cm "
                      "off -> 8.1 cm on; degraded ATE 1.73 cm, 1 lost, 1 relocalized")
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
-# memory, float32 outside the tensor cores, int8 in the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_INT8_S = 1979e12
+BENCH_TIMEOUT_S = 600  # the benchmark verb's subprocess
 
 
 def phase(name: str) -> None:
@@ -224,78 +235,13 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def device_ms(fn, n: int = TIMING_LAUNCHES) -> tuple[float, float]:
-    """(median device ms of one `fn()` call over n calls, share of the
-    timed span the device was busy).
-
-    A spin kernel holds the card while the host queues all n calls, so the
-    event pairs bracket device work and not the host's launch overhead
-    (which exceeds it for these small calls). A pass in which the host took
-    longer to queue them than the spin lasts is taken once more with a
-    longer spin (a call of many operations fills the launch queue and waits
-    for the spin to end whatever its length: its time is the host's). The
-    busy share is the sum of the pairs over the span from the first to the
-    last event: near 1 when the queue never ran dry."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    enqueue_s = time.perf_counter() - t0
-    spin_s = 3.0 * enqueue_s + 1e-3
-    for _ in range(2):
-        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                 for _ in range(n)]
-        t0 = time.perf_counter()
-        torch.cuda._sleep(int(spin_s * 2.0e9))  # cycles; the clock is below 2 GHz
-        for a, b in pairs:
-            a.record()
-            fn()
-            b.record()
-        queued_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        if queued_s < spin_s:
-            break
-        spin_s = 2.0 * queued_s  # the host fell behind the spin: again, longer
-    times = [a.elapsed_time(b) for a, b in pairs]
-    span = pairs[0][0].elapsed_time(pairs[-1][1])
-    return float(np.median(times)), float(sum(times) / span)
-
-
-def bound(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes moved once over the memory rate and the operations over the
-    peak rate of their type."""
-    t_bytes = n_bytes / PEAK_BYTES_S
-    t_ops = f32_ops / PEAK_F32_S + int8_ops / PEAK_INT8_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def host_ms(fn, n: int = 5) -> float:
-    """Median host-clock ms of one `fn()` call that ends synchronised: what
-    a stage of many small device ops costs, launch overhead included."""
-    fn()
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times))
-
-
 def device_phase() -> str:
     phase("device")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_and_power()
+    name = torch.cuda.get_device_name(0)
+    check(card_peaks(name) is not None, f"no published peaks for {name!r}: the bounds "
+                                        "need the card's (runtime.profiling.CARD_PEAKS)")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -342,15 +288,6 @@ def _gn_errors(got, ref) -> tuple[float, float, float, int]:
     g_scale = max(1.0, float(np.abs(g0).max()))
     return (float(np.abs(H1 - H0).max()) / h_scale, float(np.abs(g1 - g0).max()) / g_scale,
             abs(float(s1) - float(s0)) / max(abs(float(s0)), 1e-30), int(i1) - int(i0))
-
-
-def _gn_bound(tg, n_b: int, n_sets: int, n_px: int):
-    """Each plane set, pose and flow read once, 60 values a problem written
-    (H, g, sq_sum, inliers, the next pose); ~300 float operations a pixel
-    (projection, four-corner sampling of ten channels, two 7-vector outer
-    products) and ~500 a problem for the pose update."""
-    return bound(4.0 * (n_sets * (tg.SRC_CHANNELS + tg.TGT_CHANNELS) * n_px + n_b * (18 + 60)),
-                 f32_ops=n_b * (300.0 * n_px + 500.0))
 
 
 def gn_kernel_phase(cfg) -> dict:
@@ -430,7 +367,8 @@ def gn_kernel_phase(cfg) -> dict:
         reduce_ms, _ = device_ms(lambda: tg.gn_reduce(*args))
         ms, busy = device_ms(lambda: tg.gn_step(*args))
         plain_ms, plain_busy = device_ms(lambda: tg.gn_step_reference(*args))
-        b_ms, b_by = _gn_bound(tg, 1, 1, lcam.height * lcam.width)
+        b_s, b_by = sol_s(*gn_work(1, 1, lcam.height * lcam.width))
+        b_ms = 1e3 * b_s
         print(f"  device median of {TIMING_LAUNCHES}: gn_reduce {reduce_ms:.4f} ms, gn_step "
               f"{ms:.4f} ms, plain gn_step "
               f"{plain_ms:.4f} ms (queue busy share {busy:.3f} / {plain_busy:.3f}); bound "
@@ -503,7 +441,8 @@ def gn_batched_kernel_phase(cfg) -> dict:
         worst = max(worst, err_w)
         reduce_ms, _ = device_ms(lambda: tg.gn_reduce_batched(*args))
         ms, busy = device_ms(lambda: tg.gn_step_batched(*args))
-        b_ms, b_by = _gn_bound(tg, n_b, n_sets, n_px)
+        b_s, b_by = sol_s(*gn_work(n_b, n_sets, n_px))
+        b_ms = 1e3 * b_s
         row = {"shape": shape, "B": n_b, "sets": n_sets, "ms": ms, "reduce_ms": reduce_ms,
                "bound_ms": b_ms, "bound_by": b_by}
         if with_plain:
@@ -584,49 +523,6 @@ def _assert_exact(name: str, kernel_out, again, plain_out) -> float:
     return worst
 
 
-def _full_map(m, seed: int = 0):
-    """`m` with every free point slot filled: each takes the descriptor of a
-    valid point (cyclically) with eight of its bits flipped and the point's
-    position moved by up to 3 cm, so that all 16384 slots are valid, near
-    copies tie and the gates see a crowded map."""
-    import dataclasses
-
-    free = (~m.pt_valid).nonzero()[:, 0]
-    src = m.pt_valid.nonzero()[:, 0]
-    pick = src[torch.arange(len(free), device=src.device) % len(src)]
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    signs, xyz = m.pt_signs.clone(), m.pt_xyz.clone()
-    flips = torch.rand((len(free), 256), generator=gen).argsort(dim=1)[:, :8]
-    row = signs[pick]
-    row.scatter_(1, flips.to(row.device), -row.gather(1, flips.to(row.device)))
-    signs[free] = row
-    xyz[free] = m.pt_xyz[pick] + 0.03 * (
-        2 * torch.rand((len(free), 3), generator=gen) - 1).to(xyz.device)
-    return dataclasses.replace(m, pt_signs=signs, pt_xyz=xyz,
-                               pt_valid=torch.ones_like(m.pt_valid))
-
-
-def _gated_args(smap, m, desc, ok, kp, pts, T, cfg):
-    """The arguments `match_against_map` hands `gated_match` for this query
-    against map `m`, and the point ids it returns."""
-    captured = {}
-    real = smap.gated_match
-
-    def capture(*args, **kw):
-        captured["args"], captured["kw"] = args, kw
-        return real(*args, **kw)
-
-    smap.gated_match = capture
-    try:
-        pid = smap.match_against_map(
-            m, desc.signs, ok, kp.uv, pts[:, 2], T, cam=cfg.camera,
-            max_distance=float(cfg.orb.match_threshold), kp_pts=pts,
-            merge_radius=cfg.keyframes.merge_radius)
-    finally:
-        smap.gated_match = real
-    return captured["args"], captured["kw"], pid
-
-
 def _gated_case(th, name: str, g_args, g_kw):
     """gated_match on one input set: equal to the plain version and to a
     second launch, timed, with its bound. -> (its row, the outputs)."""
@@ -638,12 +534,10 @@ def _gated_case(th, name: str, g_args, g_kw):
     ms, busy = device_ms(lambda: th.gated_match(*g_args, **g_kw))
     plain_ms, _ = device_ms(lambda: th.gated_match_reference(*g_args, **g_kw), n=10)
     k1, k2 = g_args[0].shape[0], g_args[2].shape[0]
-    # the pairs whose distance this run's data needs: valid query x valid
-    # point; 256 multiply-adds a pair for the sign product, ~17 float
-    # operations a pair for the two gates
+    # the pairs whose distance this run's data needs: valid query x valid point
     pairs = float(g_args[1][:, 3].sum()) * float(g_args[3][:, 3].sum())
-    b_ms, b_by = bound((k1 + k2) * (256 + 32) + k1 * 16,
-                       f32_ops=17.0 * pairs, int8_ops=2.0 * 256 * pairs)
+    b_s, b_by = sol_s(*gated_work(k1, k2, pairs))
+    b_ms = 1e3 * b_s
     print(f"gated_match {name}: d1 i1 d2 i2 equal the plain version and a second "
           f"launch exactly; tier 1 matched {int((a[0] < 64).sum())}, tier 2 "
           f"{int((a[2] < 1e9).sum())} of {k1} queries")
@@ -655,25 +549,34 @@ def _gated_case(th, name: str, g_args, g_kw):
 
 
 def _top2_case(th, name: str, args) -> dict:
-    """hamming_top2 on one input set, as `_gated_case`. -> its row."""
+    """hamming_top2 on one input set, as `_gated_case`, and the library
+    comparator (`benchmarks.hamming_top2_library`: a bf16 matrix product and
+    `torch.topk`) on the same inputs: equal distances. -> its row."""
     a = th.hamming_top2(*args)
     b = th.hamming_top2(*args)
     ref = th.hamming_top2_reference(*args)
+    lib = hamming_top2_library(*args)
     torch.cuda.synchronize()
     err = _assert_exact(f"hamming_top2 {name}", a, b, ref)
+    check(torch.equal(lib[0], a[0]) and torch.equal(lib[1], a[1]),
+          f"hamming_top2 {name}: the library comparator gives other distances")
     tied = int(((a[0] == a[1]) & (a[0] < 1e9)).sum())
     ms, busy = device_ms(lambda: th.hamming_top2(*args))
     plain_ms, _ = device_ms(lambda: th.hamming_top2_reference(*args), n=10)
+    library_ms, _ = device_ms(lambda: hamming_top2_library(*args), n=10)
     n1, n2 = args[0].shape[0], args[2].shape[0]
     pairs = float(args[1].sum()) * float(args[3].sum())
-    b_ms, b_by = bound((n1 + n2) * (256 + 1) + n1 * 12, int8_ops=2.0 * 256 * pairs)
+    b_s, b_by = sol_s(*top2_work(n1, n2, pairs))
+    b_ms = 1e3 * b_s
     print(f"hamming_top2 {name}: best second idx equal the plain version and a second "
           f"launch exactly ({tied} rows with second == best, {int(args[1].sum())} valid "
-          f"queries, {int(args[3].sum())} valid columns)")
+          f"queries, {int(args[3].sum())} valid columns); the library comparator's "
+          f"distances equal")
     print(f"  device median of {TIMING_LAUNCHES}: kernel {ms:.4f} ms (queue busy "
-          f"share {busy:.3f}), plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}")
-    return {"shape": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+          f"share {busy:.3f}), plain {plain_ms:.4f} ms, library (bf16 matmul + topk) "
+          f"{library_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}")
+    return {"shape": name, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 def hamming_kernel_phase(cfg) -> dict:
@@ -715,7 +618,7 @@ def hamming_kernel_phase(cfg) -> dict:
     m.pt_xyz[dup] = m.pt_xyz[:128]
     m.pt_valid[dup] = True
     check(bool((m.pt_signs[~m.pt_valid] == 0).all()), "free slots are not zero rows")
-    full = _full_map(m)
+    full = full_map(m)
 
     # the query: a frame between two of the keyframes, at a pose 1 cm off
     q = 30
@@ -723,8 +626,8 @@ def hamming_kernel_phase(cfg) -> dict:
     kp, desc, pts, ok = rs._features(depth, rgb, cfg.orb, cam)
     T = torch.from_numpy(rel[q]).to(dev).clone()
     T[0, 3] += 0.01
-    g_args, g_kw, pid = _gated_args(smap, m, desc, ok, kp, pts, T, cfg)
-    g_full, g_full_kw, _ = _gated_args(smap, full, desc, ok, kp, pts, T, cfg)
+    g_args, g_kw, pid = gated_match_args(m, desc, ok, kp, pts, T, cfg)
+    g_full, g_full_kw, _ = gated_match_args(full, desc, ok, kp, pts, T, cfg)
     feat_ms = host_ms(lambda: rs._features(depth, rgb, cfg.orb, cam))
     assoc_ms = host_ms(lambda: smap.match_against_map(
         m, desc.signs, ok, kp.uv, pts[:, 2], T, cam=cam,
@@ -882,43 +785,6 @@ def small_backend_phase(cfg) -> dict:
     return {"top2": top2}
 
 
-def _sweep(sess, frames, fps: float, merges: list | None = None,
-           pass_ms: list | None = None):
-    """Drive `sess` over the frames. -> (device ms of every call from CUDA
-    events, which calls inserted a keyframe, wall seconds). A frame's
-    keyframe decision is applied in a later call, so the insert is charged
-    to the call that made it. With `merges`, it gets one flag a call: the
-    call merged a backend result; with `pass_ms`, the host ms of each merged
-    result's pass (`BackendResult.backend_ms`)."""
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(frames) + 1)]
-    kf_calls = []
-    applied = [0]
-    real_apply = sess._apply_backend
-
-    def apply(r):
-        applied[0] += r is not None
-        if r is not None and pass_ms is not None:
-            pass_ms.append(r.backend_ms)
-        return real_apply(r)
-
-    sess._apply_backend = apply
-    marks[0].record()
-    wall0 = time.perf_counter()
-    for i, (depth, rgb) in enumerate(frames):
-        before, merged = sess.state.keyframes, applied[0]
-        sess.process_frame(i / fps, depth, rgb)
-        marks[i + 1].record()
-        kf_calls.append(sess.state.keyframes > before)
-        if merges is not None:
-            merges.append(applied[0] > merged)
-    sess.flush_pipeline()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - wall0
-    del sess._apply_backend
-    ms = np.array([marks[i].elapsed_time(marks[i + 1]) for i in range(len(frames))])
-    return ms, np.array(kf_calls), wall
-
-
 def _p(ms) -> str:
     """'n calls: p50 / p99 ms' of some call times."""
     if len(ms) == 0:
@@ -934,8 +800,8 @@ def _control_sweep(cfg, frames, cuda_graph: bool = True):
     (call ms from frame STEADY_FROM on, poses, the session's frame graph)."""
     from slam_rgbd_tpu_torch import SLAMSession
 
-    sess = SLAMSession(_never_a_keyframe(cfg), cuda_graph=cuda_graph)
-    ms, _, _ = _sweep(sess, frames, cfg.camera.fps)
+    sess = SLAMSession(tracking_only_config(cfg), cuda_graph=cuda_graph)
+    ms, _, _ = sweep(sess, frames, cfg.camera.fps)
     check(sess.state.keyframes == 1, "the control inserted keyframes")
     return ms[STEADY_FROM:], sess.poses()[1], sess._graph
 
@@ -979,7 +845,7 @@ def _inline_control(cfg, frames, gt) -> None:
 
     sess = SLAMSession(cfg)
     pass_ms = []
-    ms, kf_calls, _ = _sweep(sess, frames, cfg.camera.fps, pass_ms=pass_ms)
+    ms, kf_calls, _ = sweep(sess, frames, cfg.camera.fps, pass_ms=pass_ms)
     _, est = sess.poses()
     check_no_errors("inline control")
     ms, kf_calls = ms[STEADY_FROM:], kf_calls[STEADY_FROM:]
@@ -1021,7 +887,7 @@ def main_phase(cfg, with_control: bool = False, with_profile: bool = False) -> d
     tg.gn_reduce.launches = tg.gn_reduce_batched.launches = 0
     th.gated_match.launches = th.hamming_top2.launches = 0
     merges, pass_ms = [], []
-    all_ms, kf_calls, wall = _sweep(sess, frames, cam.fps, merges, pass_ms)
+    all_ms, kf_calls, wall = sweep(sess, frames, cam.fps, merges, pass_ms)
     t0 = time.perf_counter()
     sess.sync_backend(timeout=120.0, final_pass=True)
     drain_s = time.perf_counter() - t0
@@ -1144,7 +1010,7 @@ def lost_phase(cfg, run: dict) -> dict:
     sess = SLAMSession(cfg)
     tg.gn_reduce.launches = tg.gn_reduce_batched.launches = 0
     th.gated_match.launches = th.hamming_top2.launches = 0
-    _sweep(sess, frames, cam.fps)
+    sweep(sess, frames, cam.fps)
     launches = th.hamming_top2.launches
     st = sess.state
     ts, est = sess.poses()
@@ -1191,7 +1057,7 @@ def degraded_phase(cfg, run: dict) -> dict:
         c.launches = 0
     sess = SLAMSession(cfg, async_backend=True)
     try:
-        ms, kf_calls, wall = _sweep(sess, frames, cam.fps)
+        ms, kf_calls, wall = sweep(sess, frames, cam.fps)
         sess.sync_backend(timeout=120.0, final_pass=True)
         _, est = sess.poses()
         st, w = sess.state, sess.worker
@@ -1219,8 +1085,6 @@ def loop_leg_phase(cfg) -> dict:
     interval, the backend inline (deterministic, and every closure's cost
     lands on the frame that closes it), loops off then on."""
     phase("loop leg")
-    import dataclasses
-
     from slam_rgbd_tpu_torch import SLAMSession
     from slam_rgbd_tpu_torch.eval.trajectory import ate_rmse
     from slam_rgbd_tpu_torch.io.synthetic import orbit_trajectory, render_frame
@@ -1235,16 +1099,11 @@ def loop_leg_phase(cfg) -> dict:
     launches = {c.__name__: 0 for c in counters}
     out = {}
     for label, on in (("off", False), ("on", True)):
-        leg = dataclasses.replace(
-            cfg,
-            icp=dataclasses.replace(cfg.icp, drift_xi=LOOP_LEG_DRIFT),
-            keyframes=dataclasses.replace(cfg.keyframes, kf_min_trans=0.06),
-            ba=dataclasses.replace(cfg.ba, loop_min_interval=5, loop_cooldown_kf=3,
-                                   loop_min_score=cfg.ba.loop_min_score if on else 2.0))
+        leg = loop_leg_config(cfg, on)
         for c in counters:
             c.launches = 0
         sess = SLAMSession(leg)
-        ms, kf_calls, wall = _sweep(sess, frames, cam.fps)
+        ms, kf_calls, wall = sweep(sess, frames, cam.fps)
         _, est = sess.poses()
         for c in counters:
             launches[c.__name__] += c.launches
@@ -1787,16 +1646,6 @@ def _profile_tracked(label: str, step, what: str, n_steps: int = 5) -> None:
           f"busy share {dev_ms / traced_ms:.4f}")
 
 
-def _never_a_keyframe(cfg):
-    """`cfg` with the keyframe thresholds out of reach: every call after the
-    bootstrap only tracks."""
-    import dataclasses
-
-    never = dataclasses.replace(cfg.keyframes, kf_min_trans=1e9, kf_min_rot_deg=1e9,
-                                kf_min_inlier_ratio=0.0)
-    return dataclasses.replace(cfg, keyframes=never)
-
-
 def _profile_tracked_frames(cfg, frames) -> None:
     """Trace tracked frames of a single session, and beside them the flow
     shift of the coarsest level as a tracked frame runs it (ten times, for
@@ -1806,7 +1655,7 @@ def _profile_tracked_frames(cfg, frames) -> None:
     from slam_rgbd_tpu_torch.odometry import icp
 
     for graph in (True, False):
-        sess = SLAMSession(_never_a_keyframe(cfg), cuda_graph=graph)
+        sess = SLAMSession(tracking_only_config(cfg), cuda_graph=graph)
         _profile_tracked(f"single session, {'CUDA graph' if graph else 'eager'}",
                          lambda i: sess.process_frame(i / cfg.camera.fps, *frames[i]),
                          "frame")
@@ -1835,7 +1684,7 @@ def _profile_tracked_steps(cfg, frames, n_seq: int) -> None:
     """Trace tracked steps of a BatchSession of `n_seq` sequences."""
     from slam_rgbd_tpu_torch import BatchSession
 
-    bs = BatchSession(_never_a_keyframe(cfg), n_seq)
+    bs = BatchSession(tracking_only_config(cfg), n_seq)
     _profile_tracked(f"B={n_seq}", lambda i: bs.process_frames(
         i / cfg.camera.fps, frames[i][0][:n_seq], frames[i][1][:n_seq]), "step")
 
@@ -2633,6 +2482,75 @@ def parallel_phase(cfg, card: str, ham: dict, ba_window: dict, leg_graph: dict,
     return launches
 
 
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "tracking_fps", "tracking_fps_eager",
+    "tracking_p50_ms", "tracking_p99_ms", "kernel_sol", "ba_ms_per_iter", "ba_window_kf",
+    "ba_obs", "ba_busy_share", "scaling", "session_fps", "session_mean_ms",
+    "session_p50_ms", "session_p99_ms", "session_max_ms", "session_insert_p50_ms",
+    "session_insert_p99_ms", "keyframes", "map_points", "loops", "backend_jobs",
+    "session_ate_cm", "notes", "degraded_leg", "loop_leg", "kernel_launches", "device",
+    "power_limit_w",
+}
+
+
+def benchmark_phase(cfg, card: str) -> dict:
+    """The `benchmark` verb as a user runs it, in a subprocess: its JSON
+    line, checked. -> the line."""
+    phase("benchmark")
+    w, h = cfg.camera.width, cfg.camera.height
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "line.json")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "slam_rgbd_tpu_torch", "benchmark", "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(cli.returncode == 0, f"benchmark failed ({cli.returncode}): "
+                                   f"{cli.stderr[-3000:]}")
+        with open(out) as f:
+            line = json.load(f)
+    print(f"benchmark line: {json.dumps(line)}")
+    errors = [ln for ln in cli.stderr.splitlines()
+              if " ERROR " in ln and "slam_rgbd_tpu_torch" in ln]
+    check(not errors, f"benchmark: ERROR records {errors[:5]}")
+    check(set(line) == BENCH_KEYS, f"benchmark keys: missing {BENCH_KEYS - set(line)}, "
+                                   f"extra {set(line) - BENCH_KEYS}")
+    check(line["metric"] == "slam_session_fps_640x480_odometry_plus_mapping"
+          and line["device"] == torch.cuda.get_device_name(0), "benchmark metric / device")
+    sol = line["kernel_sol"]
+    names = (f"gn_reduce_{w}x{h}", f"gn_reduce_batched_{w}x{h}_b4",
+             f"gated_match_{cfg.orb.n_features}x{cfg.keyframes.max_map_points}",
+             f"hamming_top2_{cfg.orb.n_features}x{cfg.keyframes.max_map_points}")
+    check(isinstance(sol, dict) and all(k in sol for k in names), f"kernel_sol {sol}")
+    for k in names:
+        e = sol[k]
+        print(f"  {k}: {e['measured_us']:.2f} us against {e['sol_us']:.2f} us by "
+              f"{e['bound']}, fraction {e['fraction']:.4f}, busy share {e['busy_share']:.3f}"
+              + (f", gn_step {e['step_us']:.2f} us" if "step_us" in e else "")
+              + (f", library {e['library_us']:.2f} us ({e['speedup_vs_library']:.2f}x)"
+                 if "library_us" in e else ""))
+        check(0.0 < e["fraction"] <= 1.05, f"{k}: fraction {e['fraction']}")
+    deg, leg = line["degraded_leg"], line["loop_leg"]
+    print(f"  session {line['session_fps']:.2f} frames/s, calls p50 / p99 "
+          f"{line['session_p50_ms']:.3f} / {line['session_p99_ms']:.3f} ms, inserts p50 / "
+          f"p99 {line['session_insert_p50_ms']:.3f} / {line['session_insert_p99_ms']:.3f} "
+          f"ms, {line['keyframes']} keyframes, ATE {line['session_ate_cm']:.3f} cm; "
+          f"tracking {line['tracking_fps']:.2f} frames/s (eager "
+          f"{line['tracking_fps_eager']:.2f}); BA {line['ba_ms_per_iter']:.3f} ms an "
+          f"iteration (busy share {line['ba_busy_share']:.3f}); degraded ATE "
+          f"{deg['ate_cm']:.3f} cm; loop leg {leg['loop_on']['loops']} loops, ATE "
+          f"{leg['loop_off']['ate_cm']:.3f} -> {leg['loop_on']['ate_cm']:.3f} cm; "
+          f"launches {line['kernel_launches']}; {seconds:.1f} s ({card})")
+    check(line["session_ate_cm"] < 100 * ATE_LIMIT_M, "benchmark: session ATE")
+    check(deg["ate_cm"] < 100 * ATE_LIMIT_M, "benchmark: degraded ATE")
+    check(leg["loop_on"]["loops"] >= 1 and leg["ate_recovery"] < 1.0,
+          f"benchmark: loop leg {leg}")
+    check(line["tracking_fps"] > 30.0, f"benchmark: tracking {line['tracking_fps']} frames/s")
+    check(all(n > 0 for n in line["kernel_launches"].values()),
+          f"benchmark: a kernel was not launched: {line['kernel_launches']}")
+    return line
+
+
 def main() -> int:
     flags = set(sys.argv[1:])
     check(flags <= {"--control", "--profile"}, f"unknown arguments {sys.argv[1:]}")
@@ -2668,6 +2586,8 @@ def main() -> int:
     batch_launches = {k: batch[k] for k in ("batched", "gated", "top2")}
     del batch
     check_no_errors("parallel phase")
+    torch.cuda.empty_cache()
+    bench = benchmark_phase(cfg, card)["kernel_launches"]
     full_res = f"{cfg.camera.height}x{cfg.camera.width}"
     full = next(r for r in gn["rows"] if r["shape"].startswith(full_res))
     # the batch phase's shape: BATCH_B problems at full resolution
@@ -2679,21 +2599,22 @@ def main() -> int:
         dict(name="gn_reduce", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:413",
              launches=(main_launches + degraded["gn_reduce"] + pipe["gn_reduce"]
-                       + leg["gn_reduce"] + par["gn_reduce"]),
+                       + leg["gn_reduce"] + par["gn_reduce"] + bench["gn_reduce"]),
              max_abs_err=gn["max_err"],
              **{k: full[k] for k in timing}, library_ms=None),
         dict(name="gn_reduce_batched", route="cuda", source=csrc + "gn_reduce.cu",
              replaces="slam_rgbd_tpu/ops/icp_pallas.py:493",
              launches=(stacked_launches + degraded["gn_reduce_batched"]
                        + pipe["gn_reduce_batched"] + leg["gn_reduce_batched"]
-                       + batch_launches["batched"] + par["gn_reduce_batched"]),
+                       + batch_launches["batched"] + par["gn_reduce_batched"]
+                       + bench["gn_reduce_batched"]),
              max_abs_err=gnb["max_err"],
              **{k: full_b[k] for k in timing}, library_ms=None),
         dict(name="gated_match", route="cuda", source=csrc + "hamming.cu",
              replaces="slam_rgbd_tpu/ops/hamming_pallas.py:291",
              launches=(gated_launches + degraded["gated_match"] + pipe["gated_match"]
                        + leg["gated_match"] + batch_launches["gated"]
-                       + par["gated_match"]),
+                       + par["gated_match"] + bench["gated_match"]),
              max_abs_err=ham["gated_match"]["max_abs_err"],
              **{k: ham["gated_match"][k] for k in timing}, library_ms=None),
         dict(name="hamming_top2", route="cuda", source=csrc + "hamming.cu",
@@ -2702,10 +2623,12 @@ def main() -> int:
                        + degraded["hamming_top2"] + pipe["hamming_top2"]
                        + leg["hamming_top2"]
                        + small_backend["top2"] + batch_launches["top2"]
-                       + par["hamming_top2"]),
+                       + par["hamming_top2"] + bench["hamming_top2"]),
              max_abs_err=ham["hamming_top2"]["max_abs_err"],
-             **{k: ham["hamming_top2"][k] for k in timing}, library_ms=None),
+             **{k: ham["hamming_top2"][k] for k in timing + ("library_ms",)}),
     ]
+    for k in kernels:  # the line's two words; the phases print the binding peak
+        k["bound_by"] = "bytes" if k["bound_by"] == "bytes" else "operations"
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@
     python -m slam_rgbd_tpu_torch eval <estimate.txt> <groundtruth.txt>
     python -m slam_rgbd_tpu_torch export <input> <out.ply | out.ppm>
     python -m slam_rgbd_tpu_torch serve <input>   web point-cloud viewer
+    python -m slam_rgbd_tpu_torch benchmark [--frames N] [--no-legs] [--out line.json]
     python -m slam_rgbd_tpu_torch benchmark --scaling [--out report.json]
 
 An input is a TUM or ICL-NUIM directory, a `.rgbd` recording,
@@ -14,7 +15,11 @@ An input is a TUM or ICL-NUIM directory, a `.rgbd` recording,
 thread (`--threaded` adds the producer / consumer threads and the bounded
 queue), drain it with a final backend pass, and print frames, keyframes,
 map points, loops and, where the input has ground truth, the ATE with each
-estimate paired to the ground truth nearest in time. `benchmark --scaling`
+estimate paired to the ground truth nearest in time. `benchmark` runs
+`benchmarks.main` and prints its one JSON line (the threaded session's
+frames/s and call times, tracking alone, the kernels against the card's
+peaks, local BA ms an iteration, batch scaling, and with the legs the
+degraded and the loop leg); `--iters` sets its scaling iterations. `benchmark --scaling`
 prints the scaling report of `parallel.scaling` as JSON (frames/s of batched
 tracking at B = 1, 2, 4, 8 on one device, and of `dist.batch_track` at each
 mesh size up to the number of cards). Every verb runs on the CUDA device and
@@ -243,6 +248,15 @@ def cmd_benchmark(args) -> int:
     from slam_rgbd_tpu_torch.parallel.scaling import scaling_report
 
     cfg = _load_config(args)
+    if not args.scaling:
+        from slam_rgbd_tpu_torch import benchmarks
+
+        res = benchmarks.main(cfg, n_frames=args.frames, legs=not args.no_legs,
+                              device=args.device, scaling_iters=args.iters)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(json.dumps(res) + "\n")
+        return 0
     rep = scaling_report(cfg.camera, cfg.icp, iters=args.iters, width=args.width,
                          height=args.height, device=args.device)
     out = json.dumps(rep, indent=1)
@@ -319,13 +333,17 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--port", type=int, default=8080)
     source_opts(ps)
 
-    pb = verb("benchmark", cmd_benchmark, "scaling report (--scaling)")
+    pb = verb("benchmark", cmd_benchmark,
+              "the benchmark's JSON line, or the scaling report (--scaling)")
     pb.add_argument("--scaling", action="store_true",
                     help="frames/s against the batch size and the mesh size")
-    pb.add_argument("--iters", type=int, default=10)
+    pb.add_argument("--frames", type=int, default=240, help="frames of the sweep")
+    pb.add_argument("--no-legs", action="store_true",
+                    help="leave out the degraded and the loop leg")
+    pb.add_argument("--iters", type=int, default=10, help="timed steps a scaling row")
     pb.add_argument("--width", type=int, default=0)
     pb.add_argument("--height", type=int, default=0)
-    pb.add_argument("--out", help="write the JSON report here")
+    pb.add_argument("--out", help="write the JSON line or report here")
     return p
 
 
@@ -343,9 +361,6 @@ def _require_device(device: str) -> None:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.verb == "benchmark" and not args.scaling:
-        parser.error("benchmark: only --scaling is available (the throughput "
-                     "benchmark is not part of the port)")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",

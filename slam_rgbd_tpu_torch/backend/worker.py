@@ -385,7 +385,9 @@ class BackendWorker:
     `flush`), whether it returned a result or failed: until then the worker
     is busy, and a failed pass is not mistaken for an idle worker.
     `completed` counts the passes that ended, failed ones included. With
-    `blk`, every pass runs `backend_pass(..., blk=blk)`.
+    `blk`, every pass runs `backend_pass(..., blk=blk)`. The worker runs on
+    the CUDA device unless the caller asks for `device="cpu"`; without a
+    card the default raises, as the session's does.
 
     `submit` never blocks: while a job is in flight or a result is
     unconsumed, a new job replaces the waiting one, and the displaced job is
@@ -397,9 +399,11 @@ class BackendWorker:
     waiting one.
     """
 
-    def __init__(self, cfg: SLAMConfig, device="cpu", blk: Block | None = None):
+    def __init__(self, cfg: SLAMConfig, device="cuda", blk: Block | None = None):
+        from slam_rgbd_tpu_torch.runtime.session import _resolve_device
+
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = _resolve_device(device)
         self.blk = blk
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)

@@ -293,6 +293,11 @@ def insert_keyframe(
     )
 
 
+# The tight tier's gates: reprojection pixel radius, relative depth tolerance.
+PX_RADIUS = 6.0
+Z_REL_TOL = 0.08
+
+
 def match_against_map(
     m: MapState,
     signs: torch.Tensor,  # (K, 256) int8 query descriptors
@@ -301,8 +306,8 @@ def match_against_map(
     kp_z: torch.Tensor,  # (K,) query keypoint depths (camera frame)
     T_world_cam: torch.Tensor,  # (4, 4) current pose estimate
     cam=None,  # CameraIntrinsics
-    px_radius: float = 6.0,
-    z_rel_tol: float = 0.08,
+    px_radius: float = PX_RADIUS,
+    z_rel_tol: float = Z_REL_TOL,
     max_distance: float = 64.0,
     kp_pts: torch.Tensor | None = None,  # (K, 3) camera-frame 3-D (merge tier)
     merge_radius: float = 0.05,
@@ -340,6 +345,18 @@ def association_candidates(pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z,
     (the whole map, or one rank's block of it): (d1, i1, d2, i2), each (K,),
     distances and first indices into the table as `gated_match` returns
     them; the merge tier is off where `kp_pts` is None."""
+    args, kw = association_inputs(pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z,
+                                  T_world_cam, cam, px_radius, z_rel_tol, kp_pts,
+                                  merge_radius)
+    return gated_match(*args, **kw)
+
+
+def association_inputs(pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z,
+                       T_world_cam, cam, px_radius: float, z_rel_tol: float,
+                       kp_pts, merge_radius: float):
+    """What `association_candidates` hands `gated_match`: (args, keywords),
+    the query and point signs with their gate data (the points projected
+    into the query camera, the keypoints lifted into the world)."""
     K = signs.shape[0]
     # project the points into the query camera
     T_cw = se3.inverse(T_world_cam)
@@ -364,8 +381,7 @@ def association_candidates(pt_xyz, pt_signs, pt_valid, signs, ok, kp_uv, kp_z,
         pu[:, None], pv[:, None], z[:, None], proj_ok[:, None].to(f32),
         pt_xyz, (pt_xyz * pt_xyz).sum(dim=1, keepdim=True),
     ], dim=1)
-    return gated_match(
-        signs, q_meta, pt_signs, p_meta,
+    return (signs, q_meta, pt_signs, p_meta), dict(
         px_radius=px_radius, z_rel_tol=z_rel_tol,
         merge_radius=(merge_radius if kp_pts is not None else -1.0),
     )

@@ -9,6 +9,13 @@ Counterpart of `slam_rgbd_tpu/runtime/profiling.py:30-127`:
     and optionally to a file;
   * `device_trace`: a `torch.profiler` trace of the block (host and CUDA
     activity), written as a Chrome trace.
+
+and the card's side of `slam_rgbd_tpu/runtime/profiling.py:162-229`
+(`tpu_generation`, `roofline`, `speed_of_light`): the card's published
+peaks by name (`card_peaks`), its name and power limit (`card_and_power`),
+`roofline` against those peaks, and the two timings that `benchmarks` and
+`chip_smoke.py` share: `device_ms` (CUDA events, the host's queueing held
+off by a spin kernel) and `host_ms` (host clock around synchronised calls).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import time
 from dataclasses import dataclass
 
@@ -124,3 +132,146 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ---------------------------------------------------------------- the card
+# Published peaks (NVIDIA's data sheet, dense rates) by the name
+# `torch.cuda.get_device_name` gives: device memory bytes/s, float32
+# operations/s outside the tensor cores, int8 operations/s in the tensor
+# cores. The rates assume the card's full power limit (700 W for the SXM
+# part); `card_and_power` reads the limit the card is set to.
+CARD_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bytes_s": 3.35e12, "f32_s": 67e12, "int8_s": 1979e12},
+}
+
+
+def card_peaks(name: str | None) -> dict | None:
+    """The peaks of the card named `name`; None for a card the table lacks."""
+    return CARD_PEAKS.get(name) if name else None
+
+
+def card_and_power() -> str:
+    """The card's name and power limit, one line of `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` (the first card's);
+    raises if nvidia-smi fails."""
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed ({smi.returncode}): {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def sol_s(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0,
+          card: str | None = None) -> tuple[float, str] | None:
+    """(seconds, binding term): the least time the card could take for the
+    work, the largest of `n_bytes` (each input read once, each output
+    written once) over the memory rate, `f32_ops` over the float32 rate and
+    `int8_ops` over the tensor cores' int8 rate. The two kinds of operation
+    run on separate units that overlap, so their times do not add. The term
+    is "bytes", "f32" or "int8". `card`: a name of `CARD_PEAKS` (default:
+    the current CUDA device's); None for a card the table lacks."""
+    import torch
+
+    if card is None and torch.cuda.is_available():
+        card = torch.cuda.get_device_name()
+    peaks = card_peaks(card)
+    if peaks is None:
+        return None
+    terms = {"bytes": n_bytes / peaks["bytes_s"], "f32": f32_ops / peaks["f32_s"],
+             "int8": int8_ops / peaks["int8_s"]}
+    term = max(terms, key=terms.get)  # the first of equals: bytes before operations
+    return terms[term], term
+
+
+def roofline(n_bytes: float, measured_s: float, f32_ops: float = 0.0,
+             int8_ops: float = 0.0, card: str | None = None) -> dict:
+    """A call's time against `sol_s`, the least time the card could take
+    for its work; `bound` names the binding term. `card`: a name of
+    `CARD_PEAKS` (default: the current CUDA device's). For a card the table
+    lacks, `sol_us`, `fraction` and `bound` are None: no other card's peaks
+    stand in. The fraction is never capped: above 1 the measurement or the
+    count of work is wrong."""
+    import torch
+
+    if card is None and torch.cuda.is_available():
+        card = torch.cuda.get_device_name()
+    out = {
+        "measured_us": measured_s * 1e6,
+        "sol_us": None,
+        "fraction": None,
+        "bound": None,
+        "achieved_gbps": n_bytes / measured_s / 1e9,
+        "achieved_tops": (f32_ops + int8_ops) / measured_s / 1e12,
+        "card": card,
+    }
+    sol = sol_s(n_bytes, f32_ops, int8_ops, card)
+    if sol is not None:
+        out.update(sol_us=sol[0] * 1e6, fraction=sol[0] / measured_s, bound=sol[1])
+    return out
+
+
+def device_ms(fn, n: int = 50) -> tuple[float, float]:
+    """(median device ms of one `fn()` call over n calls, share of the
+    timed span the device was busy), on the current CUDA device.
+
+    A spin kernel holds the card while the host queues all n calls, so the
+    event pairs bracket device work and not the host's launch overhead
+    (which exceeds it for small calls). A pass in which the host took
+    longer to queue them than the spin lasts is taken once more with a
+    longer spin (a call of many operations fills the launch queue and waits
+    for the spin to end whatever its length: its time is the host's). The
+    busy share is the sum of the pairs over the span from the first to the
+    last event: near 1 when the queue never ran dry."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    spin_s = 3.0 * enqueue_s + 1e-3
+    for _ in range(2):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(n)]
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_s * 2.0e9))  # cycles; the clock is below 2 GHz
+        for a, b in pairs:
+            a.record()
+            fn()
+            b.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued_s < spin_s:
+            break
+        spin_s = 2.0 * queued_s  # the host fell behind the spin: again, longer
+    times = [a.elapsed_time(b) for a, b in pairs]
+    span = pairs[0][0].elapsed_time(pairs[-1][1])
+    return statistics.median(times), sum(times) / span
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host-clock ms of one `fn()` call that ends synchronised (on
+    the current CUDA device, where there is one): what a stage of many
+    small device operations costs, launch overhead included."""
+    import torch
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    fn()
+    times = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)

@@ -211,8 +211,6 @@ def test_verbs_raise_without_a_card_unless_asked_for_the_cpu(tmp_path):
         pytest.skip("a CUDA device is present: the default device exists")
     traj = os.path.join(GOLDEN, "groundtruth.txt")
     for argv in (["eval", traj, traj], ["run", GOLDEN, "--tum"],
-                 ["export", GOLDEN, str(tmp_path / "x.ply")]):
+                 ["export", GOLDEN, str(tmp_path / "x.ply")], ["benchmark"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(argv)
-    with pytest.raises(SystemExit):
-        main(["benchmark"])  # not ported: argparse refuses the verb

@@ -195,7 +195,7 @@ def test_port_never_imports_jax():
         "             'viz.pointcloud', 'viz.server', 'viz.native',\n"
         "             'runtime.batch_session', 'core.config', 'interop', '__main__',\n"
         "             'parallel.mesh', 'parallel.dist', 'parallel.scaling',\n"
-        "             'runtime.frame_graph'):\n"
+        "             'runtime.frame_graph', 'benchmarks'):\n"
         "    assert p.__name__ + '.' + need in sys.modules, need\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = [k for k in sys.modules if k == 'slam_rgbd_tpu' or k.startswith('slam_rgbd_tpu.')]\n"

@@ -1266,3 +1266,47 @@ def test_a_collection_during_a_capture_frees_no_graph_on_card(cuda_device):
     finally:
         gc.set_threshold(*threshold)
     assert new._graph.captures == 1 and np.isfinite(new.poses()[1]).all()
+
+
+@pytest.mark.cuda
+def test_device_ms_and_roofline_on_card(cuda_device):
+    """`runtime.profiling.device_ms` of a copy of 256 MiB: a positive median
+    near the copy's time (the card busy through the timed span), and
+    `roofline` judged on the card's own name: a fraction in (0, 1] where the
+    table has the card, None where it lacks it."""
+    from slam_rgbd_tpu_torch.runtime import profiling
+
+    x = torch.empty(64 * 2**20, dtype=torch.float32, device=cuda_device)
+    y = torch.empty_like(x)
+    ms, busy = profiling.device_ms(lambda: y.copy_(x), n=20)
+    assert 0.0 < ms < 50.0 and 0.5 < busy <= 1.0 + 1e-6
+    name = torch.cuda.get_device_name(cuda_device)
+    r = profiling.roofline(2 * x.numel() * 4, ms / 1e3)
+    assert r["card"] == name and r["bound"] in (None, "bytes")
+    if profiling.card_peaks(name) is None:
+        assert r["fraction"] is None
+    else:
+        assert 0.0 < r["fraction"] <= 1.0
+    assert 0.0 < profiling.host_ms(lambda: y.copy_(x)) < 1e3
+    assert name in profiling.card_and_power()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1, k2", [(1024, 16384), (1024, 1024)])
+def test_hamming_top2_library_comparator_on_card(cuda_device, k1, k2):
+    """The benchmark's library comparator (bf16 matmul + `torch.topk`) gives
+    the kernel's best and second distances exactly, masked rows included;
+    the index agrees wherever the best distance is unique."""
+    from slam_rgbd_tpu_torch.benchmarks import hamming_top2_library
+
+    rng = np.random.default_rng(11)
+    s1 = torch.from_numpy(rng.choice([-1, 1], (k1, 256)).astype(np.int8)).to(cuda_device)
+    s2 = torch.from_numpy(rng.choice([-1, 1], (k2, 256)).astype(np.int8)).to(cuda_device)
+    s2[k2 - 64:] = s2[:64]  # ties across column tiles
+    v1 = torch.from_numpy(rng.uniform(size=k1) > 0.05).to(cuda_device)
+    v2 = torch.from_numpy(rng.uniform(size=k2) > 0.05).to(cuda_device)
+    got = th.hamming_top2(s1, v1, s2, v2)
+    lib = hamming_top2_library(s1, v1, s2, v2)
+    assert torch.equal(got[0], lib[0]) and torch.equal(got[1], lib[1])
+    unique = got[1] > got[0]
+    assert torch.equal(got[2][unique], lib[2][unique].to(torch.int32))

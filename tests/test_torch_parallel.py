@@ -596,9 +596,11 @@ def test_two_rank_sharded_ba_matches_local_ba():
 
 
 # ---- benchmark --scaling -----------------------------------------------------------
-def test_benchmark_scaling_cli_on_the_cpu(tmp_path):
+def test_benchmark_scaling_cli_on_the_cpu(tmp_path, monkeypatch):
     """The verb at 64x48 with a two-level schedule: the report names the
-    CPU, one device, both tables with their keys, and the sharing note."""
+    CPU, one device, both tables with their keys, and the sharing note.
+    Without `--scaling` the verb runs `benchmarks.main` instead."""
+    from slam_rgbd_tpu_torch import benchmarks
     from slam_rgbd_tpu_torch.__main__ import main
 
     cfg_path = tmp_path / "small.yaml"
@@ -614,5 +616,7 @@ def test_benchmark_scaling_cli_on_the_cpu(tmp_path):
     assert [r["batch"] for r in rows] == [1, 2, 4, 8]
     assert rows[0]["efficiency"] == 1.0 and "marginal_ms_per_seq" in rows[1]
     assert all(r["frames_per_s"] > 0 and r["step_ms"] > 0 for r in rows)
-    with pytest.raises(SystemExit):
-        main(["benchmark", "--device", "cpu"])  # without --scaling: a usage error
+    called = {}
+    monkeypatch.setattr(benchmarks, "main", lambda cfg, **kw: called.update(kw) or {})
+    assert main(["benchmark", "--device", "cpu", "--iters", "1"]) == 0
+    assert called["device"] == "cpu" and called["scaling_iters"] == 1
