@@ -1,0 +1,12 @@
+"""Host-clock median ms of the single session's calls that inserted a
+keyframe, outside the traced slice."""
+
+import statistics
+
+
+def read(record):
+    if record["session"] != "single":
+        return None
+    ms = [c["ms"] for c in record["calls"]
+          if c["kind"] in ("insert", "insert+merge") and not c["traced"]]
+    return statistics.median(ms) if ms else None
