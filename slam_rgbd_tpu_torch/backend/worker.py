@@ -68,6 +68,11 @@ ratio 0.9, 6 cm); the port matches them and keeps no option for them.
 A pass that raises is logged at ERROR with its traceback and its job is
 dropped; the worker stays usable. No pass moves to the CPU or to a plain
 version when a kernel or a stream call fails.
+
+The worker records one span (`runtime.profiling.StageTimer`, the
+session's): `worker.queue`, from a job's `submit` to the start of its pass,
+with the call id of the frame that made the job. It crosses threads, so
+its ends are read apart.
 """
 
 from __future__ import annotations
@@ -88,8 +93,11 @@ from slam_rgbd_tpu_torch.core.config import SLAMConfig
 from slam_rgbd_tpu_torch.features import match as fmatch
 from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.parallel.mesh import Block, gather_rows
+from slam_rgbd_tpu_torch.runtime.profiling import StageTimer
 
 log = logging.getLogger("slam_rgbd_tpu_torch.backend")
+
+_NO_TIMER = StageTimer()  # keeps nothing
 
 
 @dataclass
@@ -107,6 +115,8 @@ class BackendJob:
     generation: int = 0
     # CUDA: recorded on the frontend's stream after the snapshot's copy
     ready: Optional[torch.cuda.Event] = None
+    call: int = -1  # the session's frame that made the job
+    submitted: float = 0.0  # `time.perf_counter` at `submit`
 
 
 @dataclass
@@ -387,7 +397,8 @@ class BackendWorker:
     `completed` counts the passes that ended, failed ones included. With
     `blk`, every pass runs `backend_pass(..., blk=blk)`. The worker runs on
     the CUDA device unless the caller asks for `device="cpu"`; without a
-    card the default raises, as the session's does.
+    card the default raises, as the session's does. `timer`: the
+    `StageTimer` its `worker.queue` spans go to (by default none is kept).
 
     `submit` never blocks: while a job is in flight or a result is
     unconsumed, a new job replaces the waiting one, and the displaced job is
@@ -399,12 +410,14 @@ class BackendWorker:
     waiting one.
     """
 
-    def __init__(self, cfg: SLAMConfig, device="cuda", blk: Block | None = None):
+    def __init__(self, cfg: SLAMConfig, device="cuda", blk: Block | None = None,
+                 timer: StageTimer | None = None):
         from slam_rgbd_tpu_torch.runtime.session import _resolve_device
 
         self.cfg = cfg
         self.device = _resolve_device(device)
         self.blk = blk
+        self.timer = _NO_TIMER if timer is None else timer
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._cv = threading.Condition()
@@ -421,6 +434,7 @@ class BackendWorker:
 
     # ------------------------------------------------------------- frontend
     def submit(self, job: BackendJob) -> bool:
+        job.submitted = time.perf_counter()
         with self._cv:
             if self._job is None and not self._ended:
                 if self._next_job is not None:
@@ -523,6 +537,8 @@ class BackendWorker:
 
     # -------------------------------------------------------------- backend
     def _pass(self, job: BackendJob) -> BackendResult:
+        self.timer.span("worker.queue", job.submitted, time.perf_counter(), job.call)
+
         def run():
             return backend_pass(job.map, job.edges, job.n_edges, job.kf_idx,
                                 self.cfg, n_kf=job.n_kf, allow_loop=job.allow_loop,

@@ -30,6 +30,14 @@ The host keeps per-sequence counters (keyframe counts, frame indices, lost
 streaks); everything else stays on the device. Each tracked step reads one
 (B, 4) summary back to take the keyframe / lost decisions, as the reference
 does.
+
+Spans (`runtime.profiling.StageTimer`, the session's `timer`): each step is
+a `batch.step` span whose call id is the step's index, with the children
+`batch.upload` (the host's widening and the copy to the device),
+`batch.track` (the batched tracking step), `batch.fetch` (the summary's
+read-back) and `batch.insert`, whose children are `batch.features` and
+`batch.ba`, each over every stream it serves. A `metrics` sink made with
+`MetricsLog(spans=True)` keeps them; the batch session logs no records.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from slam_rgbd_tpu_torch.features import detect as fdetect
 from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame_batched
 from slam_rgbd_tpu_torch.parallel import mesh as pmesh
+from slam_rgbd_tpu_torch.runtime.profiling import StageTimer
 from slam_rgbd_tpu_torch.runtime.session import (
     _features, _kf_insert, _reloc, _resolve_device,
 )
@@ -271,12 +280,17 @@ class BatchSession:
     `n_seq` sequences on every rank through one gather each: they are
     collectives, called by every rank of the data axis together. The array
     state (`maps`, `edges`, `T_world`, ...) is the rank's block.
+
+    `metrics`: an optional `runtime.profiling.MetricsLog` that keeps the
+    spans of `timer`, if it keeps spans.
     """
 
-    def __init__(self, cfg: SLAMConfig, n_seq: int, device="cuda", mesh=None):
+    def __init__(self, cfg: SLAMConfig, n_seq: int, device="cuda", mesh=None,
+                 metrics=None):
         if n_seq < 1:
             raise ValueError(f"n_seq must be >= 1, got {n_seq}")
         self.cfg = cfg
+        self.timer = StageTimer(metrics)
         self.B = n_seq
         self.mesh = mesh
         self._seqs = slice(0, n_seq)
@@ -337,8 +351,13 @@ class BatchSession:
         return torch.tensor(x, device=self.device)
 
     def _insert(self, ts, depth, rgb, do_insert: np.ndarray):
+        with self.timer.section("batch.insert"):
+            self._insert_steps(ts, depth, rgb, do_insert)
+
+    def _insert_steps(self, ts, depth, rgb, do_insert: np.ndarray):
         cfg = self.cfg
-        feats = _batch_features(depth, rgb, cfg.camera, cfg.orb, do_insert)
+        with self.timer.section("batch.features"):
+            feats = _batch_features(depth, rgb, cfg.camera, cfg.orb, do_insert)
         self.maps, self.edges, self.n_edges, self.last_kf_T = _batch_insert(
             self.maps, self.edges, self.n_edges, feats, self.T_world, ts,
             self._n_kf, do_insert, cfg)
@@ -347,7 +366,8 @@ class BatchSession:
         # backend: windowed BA for the sequences with enough keyframes
         do_ba = do_insert & (self._n_kf >= 3)
         if do_ba.any():
-            self.maps, self.T_world, _ = _batch_ba(self.maps, self.T_world, do_ba, cfg)
+            with self.timer.section("batch.ba"):
+                self.maps, self.T_world, _ = _batch_ba(self.maps, self.T_world, do_ba, cfg)
         # loop closure: the cheap candidate search on inserting sequences
         # past their cooldown; the closure itself only where a candidate
         # exists
@@ -380,10 +400,16 @@ class BatchSession:
             raise ValueError(
                 f"expected {self.B} sequences, got depth {np.shape(depth)}, "
                 f"rgb {np.shape(rgb)}")
+        with self.timer.section("batch.step", call=self._frame_i):
+            self._step(ts, depth, rgb)
+
+    def _step(self, ts: float, depth, rgb):
+        timer = self.timer
         if self.mesh is not None:
             depth, rgb = depth[self._seqs], rgb[self._seqs]
-        depth = self._upload(depth)
-        rgb = self._upload(rgb)
+        with timer.section("batch.upload"):
+            depth = self._upload(depth)
+            rgb = self._upload(rgb)
         cfg = self.cfg
         traj_i = len(self._traj_ts)
         if traj_i >= self._traj_cap:  # double the log
@@ -398,10 +424,12 @@ class BatchSession:
             self._insert(ts, depth, rgb, np.ones(self.n_local, bool))
             self._last_kf_frame[:] = 0
         else:
-            self.prev_pyr, self.T_world, self.motion, summaries = _batch_steady(
-                self.prev_pyr, depth, rgb, self.T_world, self.motion,
-                self.last_kf_T, cfg.camera, cfg.icp, cfg.keyframes)
-            s = summaries.cpu().numpy()  # (B, 4): the step's one fetch
+            with timer.section("batch.track"):
+                self.prev_pyr, self.T_world, self.motion, summaries = _batch_steady(
+                    self.prev_pyr, depth, rgb, self.T_world, self.motion,
+                    self.last_kf_T, cfg.camera, cfg.icp, cfg.keyframes)
+            with timer.section("batch.fetch"):
+                s = summaries.cpu().numpy()  # (B, 4): the step's one fetch
             ok = (s[:, 0] > 0.25) & (s[:, 2] > 0.5)
             self._state.lost += (~ok).astype(np.int64)
             self._lost_streak = np.where(ok, 0, self._lost_streak + 1)

@@ -1,14 +1,24 @@
-"""Stage timing, structured metrics and a device trace.
+"""Spans, structured metrics, and the card's peaks and timings.
 
 Counterpart of `slam_rgbd_tpu/runtime/profiling.py:30-127`:
 
-  * `StageTimer`: named host-side sections with count / mean / EMA / min /
-    max summaries;
+  * `StageTimer`: the span recorder. `with timer.section("session.insert"):`
+    marks a stage. Given a `MetricsLog` made with `spans=True`, it keeps
+    every span as a `Span` in the sink's `spans` list: its host clock
+    (`time.perf_counter`) ends, its thread, its parent (the innermost
+    section open on that thread when it opened) and its call id (the frame
+    that made the work; a nested section inherits its parent's); `report`
+    sums them by name as the reference's count / mean / EMA / min / max.
+    While a `torch.profiler` profile records on the thread, a section is
+    also a host range of its name, so the span lies in the same timeline
+    as the device's kernels and copies. The range is a plain host
+    operation (`_RecordFunctionFast`), not a user annotation: the profiler
+    mirrors a user annotation onto the device as an event spanning its
+    kernels, which a trace's reader would count as device work. With
+    neither, a section is a shared context that does nothing;
   * `MetricsLog`: JSON-lines records (`frame_window` from the session,
     `backend` from its merges, `queue` from the pipeline runner), in memory
-    and optionally to a file;
-  * `device_trace`: a `torch.profiler` trace of the block (host and CUDA
-    activity), written as a Chrome trace.
+    and optionally to a file, and the spans above when asked for.
 
 and the card's side of `slam_rgbd_tpu/runtime/profiling.py:162-229`
 (`tpu_generation`, `roofline`, `speed_of_light`): the card's published
@@ -23,10 +33,13 @@ from __future__ import annotations
 import contextlib
 import json
 import math
-import os
 import statistics
+import threading
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
 
 
 @dataclass
@@ -51,28 +64,97 @@ class StageStats:
         return self.total_s / max(self.count, 1)
 
 
+class Span(NamedTuple):
+    """One recorded section: host clock (`time.perf_counter`) seconds."""
+
+    name: str
+    start: float
+    end: float
+    thread: int  # the OS thread id (`threading.get_native_id`)
+    parent: str | None  # the enclosing section on that thread
+    call: int  # the frame that made the work; -1 if none was given
+
+
+_NO_SECTION = contextlib.nullcontext()
+
+
+class _Section:
+    __slots__ = ("timer", "name", "call", "parent", "start", "_range", "_open")
+
+    def __init__(self, timer: "StageTimer", name: str, call: int | None):
+        self.timer, self.name, self.call = timer, name, call
+        self.parent = None
+
+    def __enter__(self):
+        # the thread's open sections matter only to a kept span
+        self._open = None if self.timer._kept is None else self.timer._thread()
+        if self._open is not None:
+            st = self._open.stack
+            if st:
+                self.parent = st[-1].name
+                if self.call is None:
+                    self.call = st[-1].call
+            st.append(self)
+        if self.call is None:
+            self.call = -1
+        self._range = None
+        if torch.autograd._profiler_enabled():  # a profile records this thread
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        if self._open is not None:
+            self._open.stack.pop()
+            # (one list.append: safe from any thread)
+            self.timer._kept.append(Span(self.name, self.start, end,
+                                         self._open.tid, self.parent, self.call))
+        return False
+
+
 class StageTimer:
-    """Named section timing: `with timer.section("track"): ...`."""
+    """The span recorder: `with timer.section("track"): ...`; `sink`: a
+    `MetricsLog` whose `spans` list, if it has one, keeps every span. Safe
+    to record from more than one thread."""
 
-    def __init__(self):
-        self.stages: dict[str, StageStats] = {}
+    def __init__(self, sink: "MetricsLog | None" = None):
+        self.sink = sink
+        self._kept: list | None = None if sink is None else sink.spans
+        # .stack: this thread's open sections, innermost last; .tid
+        self._local = threading.local()
 
-    def add(self, name: str, seconds: float):
-        """Record a duration measured elsewhere under `name`."""
-        self.stages.setdefault(name, StageStats()).add(seconds)
+    def _thread(self):
+        """This thread's record: its open sections and its OS thread id."""
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.stack, local.tid = [], threading.get_native_id()
+        return local
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stages.setdefault(name, StageStats()).add(
-                time.perf_counter() - t0
-            )
+    def section(self, name: str, call: int | None = None):
+        """A context manager marking its block as the span `name`; `call`
+        defaults to the enclosing section's call id. Kept spans and a
+        recording profiler aside, it does nothing."""
+        if self._kept is None and not torch.autograd._profiler_enabled():
+            return _NO_SECTION
+        return _Section(self, name, call)
+
+    def span(self, name: str, start: float, end: float, call: int = -1):
+        """Keep a span whose ends were read elsewhere (`time.perf_counter`),
+        such as one that starts on one thread and ends on another: it has
+        no parent and is not in the profiler's timeline."""
+        if self._kept is not None:
+            self._kept.append(Span(name, start, end, self._thread().tid, None, call))
 
     def report(self) -> dict:
-        """{stage: {count, mean_ms, ema_ms, min_ms, max_ms}}."""
+        """{stage: {count, mean_ms, ema_ms, min_ms, max_ms}} over the kept
+        spans, in the order they closed."""
+        stages: dict[str, StageStats] = {}
+        for s in self._kept or ():
+            stages.setdefault(s.name, StageStats()).add(s.end - s.start)
         return {
             k: {
                 "count": s.count,
@@ -81,24 +163,20 @@ class StageTimer:
                 "min_ms": round(s.min_s * 1e3, 3),
                 "max_ms": round(s.max_s * 1e3, 3),
             }
-            for k, s in self.stages.items()
+            for k, s in stages.items()
         }
-
-    def summary(self) -> str:
-        rows = [
-            f"{k:<16} n={v['count']:<6} mean={v['mean_ms']:>8.3f}ms "
-            f"ema={v['ema_ms']:>8.3f}ms max={v['max_ms']:>8.3f}ms"
-            for k, v in self.report().items()
-        ]
-        return "\n".join(rows)
 
 
 class MetricsLog:
-    """Structured JSON-lines metrics sink (file or in-memory)."""
+    """Structured JSON-lines metrics sink (file or in-memory). With
+    `spans=True`, a `StageTimer` given this sink keeps its spans in the
+    in-memory `spans` list (a few entries a frame); otherwise `spans` is
+    None."""
 
-    def __init__(self, path: str | None = None):
+    def __init__(self, path: str | None = None, spans: bool = False):
         self.path = path
         self.records: list[dict] = []
+        self.spans: list[Span] | None = [] if spans else None
         self._fh = open(path, "a") if path else None
 
     def log(self, kind: str, **fields):
@@ -115,23 +193,6 @@ class MetricsLog:
 
     def by_kind(self, kind: str) -> list[dict]:
         return [r for r in self.records if r["kind"] == kind]
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """A `torch.profiler` trace of everything inside the block (host
-    operations, and CUDA kernels and copies when a card is present), written
-    to `log_dir/trace.json` in the Chrome trace format. Yields the profiler,
-    whose `key_averages()` sums the events by name."""
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 # ---------------------------------------------------------------- the card
@@ -174,8 +235,6 @@ def sol_s(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0,
     run on separate units that overlap, so their times do not add. The term
     is "bytes", "f32" or "int8". `card`: a name of `CARD_PEAKS` (default:
     the current CUDA device's); None for a card the table lacks."""
-    import torch
-
     if card is None and torch.cuda.is_available():
         card = torch.cuda.get_device_name()
     peaks = card_peaks(card)
@@ -195,8 +254,6 @@ def roofline(n_bytes: float, measured_s: float, f32_ops: float = 0.0,
     lacks, `sol_us`, `fraction` and `bound` are None: no other card's peaks
     stand in. The fraction is never capped: above 1 the measurement or the
     count of work is wrong."""
-    import torch
-
     if card is None and torch.cuda.is_available():
         card = torch.cuda.get_device_name()
     out = {
@@ -226,8 +283,6 @@ def device_ms(fn, n: int = 50) -> tuple[float, float]:
     for the spin to end whatever its length: its time is the host's). The
     busy share is the sum of the pairs over the span from the first to the
     last event: near 1 when the queue never ran dry."""
-    import torch
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -260,8 +315,6 @@ def host_ms(fn, n: int = 5) -> float:
     """Median host-clock ms of one `fn()` call that ends synchronised (on
     the current CUDA device, where there is one): what a stage of many
     small device operations costs, launch overhead included."""
-    import torch
-
     def sync():
         if torch.cuda.is_available():
             torch.cuda.synchronize()

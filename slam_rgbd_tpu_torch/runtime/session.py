@@ -72,9 +72,21 @@ Frames from the host (numpy arrays) go up through a ring of pinned buffers
 (`runtime.staging.PinnedStaging`) without waiting for the device; frames
 that are already tensors are used where they lie. With `metrics` (a
 `runtime.profiling.MetricsLog`), every `runtime.metrics_every_frames` frames
-the session logs a `frame_window` record (which reads the map's point count
-back from the device) and every merged backend result a `backend` record,
-with the reference's keys.
+the session logs a `frame_window` record and every merged backend result a
+`backend` record, with the reference's keys. A `frame_window` record waits
+for its map point count, copied from the device without blocking, and is
+logged at the first call that finds the copy landed (on the CPU, at once).
+
+Spans (`runtime.profiling.StageTimer`, the session's `timer`, which
+outlives `reset()` as the metrics sink does): each call is a
+`session.frame` span whose call id is the frame index, with the children
+`session.upload`, `session.decide` (the previous frame's decisions: its
+`session.wait` for the summary, and a keyframe's `session.insert`, whose
+children are `session.insert.features` and `session.insert.map`, the
+K3 association, insert and cull of `_kf_insert`) and `session.track` (the
+graph replay or eager step); the backend worker records its
+`worker.queue` into the same timer (`backend.worker`). A sink made with `MetricsLog(spans=True)` keeps
+them; a recording `torch.profiler` sees them as host ranges.
 
 Two faults of the reference arrive with the backend, and the port matches
 both: the fusion thresholds are hard-coded (`backend.worker`), and
@@ -347,7 +359,7 @@ class SLAMSession:
     merges its results at the start of later frames. Call `close()` (or
     `sync_backend()`) to drain it. `metrics`: an optional
     `runtime.profiling.MetricsLog` for the `frame_window` and `backend`
-    records.
+    records, and, if it keeps spans, those of `timer`.
 
     `cuda_graph`: run the steady-state frame as a CUDA graph replay (the
     default on a CUDA device; True on the CPU raises); False runs the eager
@@ -367,6 +379,7 @@ class SLAMSession:
         self.cfg = config
         self.device = _resolve_device(device)
         self.metrics = metrics
+        self.timer = StageTimer(metrics)
         self.mesh = mesh
         self._blk = None
         axis = config.mesh.model_axis
@@ -410,7 +423,6 @@ class SLAMSession:
         bookkeeping and the backend worker anew, the static tensors set in
         place."""
         cfg = self.cfg
-        self.timer = StageTimer()
         self.state = SessionState()
         self.stats: list[FrameStats] = []
         self.map = smap.empty_map(cfg.keyframes, self._kp_capacity(), self.device,
@@ -442,7 +454,8 @@ class SLAMSession:
         self.worker = None
         if self.async_backend:
             self._worker_groups()
-            self.worker = bworker.BackendWorker(cfg, self.device, self._worker_blk)
+            self.worker = bworker.BackendWorker(cfg, self.device, self._worker_blk,
+                                                timer=self.timer)
         self._last_loop_kf = -(10 ** 9)
         # Loop-merge generation: bumped when a loop-closure result merges
         # (the pose graph rewrites every keyframe). Jobs are stamped with it;
@@ -455,6 +468,8 @@ class SLAMSession:
         self._deferred_job: Optional[bworker.BackendJob] = None
         # threaded and sharded: the agreement the last call started
         self._agreement = None
+        # a frame_window record waiting for its map point count to land
+        self._window = None
 
     def _worker_groups(self):
         """A threaded sharded session's process groups over its `model`
@@ -594,10 +609,17 @@ class SLAMSession:
         """Track one frame (depth in sensor units, RGB uint8), after
         resolving the previous frame's decisions."""
         t0 = time.monotonic()
+        with self.timer.section("session.frame", call=self._frame_i):
+            st = self._process(ts, depth_raw, rgb)
+        return self._finish(st, t0)
+
+    def _process(self, ts: float, depth_raw, rgb) -> FrameStats:
+        timer = self.timer
         # this frame goes up first, so that its copy is queued while the
         # host waits for the previous frame's summary
-        depth_t = self._upload(depth_raw)
-        rgb_t = self._upload(rgb)
+        with timer.section("session.upload"):
+            depth_t = self._upload(depth_raw)
+            rgb_t = self._upload(rgb)
         if self.worker is not None:
             # merge finished backend work first: a snapshot then holds every
             # earlier correction. `advance` promotes a waiting job after the
@@ -617,7 +639,8 @@ class SLAMSession:
                 self.worker.submit(job)
             if self._host_group is not None and self.worker.busy():
                 self._agreement = self._agreement_start()
-        self.flush_pipeline()  # the previous frame's decisions
+        with timer.section("session.decide"):
+            self.flush_pipeline()  # the previous frame's decisions
 
         if self.prev_pyr is None:
             # first frame: bootstrap a keyframe at the current pose, unless
@@ -633,24 +656,27 @@ class SLAMSession:
                 self._keyframe(ts, depth_t, rgb_t, self.T_world)
             self._log_pose(ts)
             self._frame_i += 1
-            return self._finish(st, t0)
+            return st
 
         traj_i = len(self._traj_ts)
         if traj_i >= self._traj_cap:
             self._grow_traj_ring()  # (the graph is captured again)
         self._traj_i.fill_(traj_i)
-        if self._graph is None:
-            self.prev_pyr, T, motion, summary = self._step(self.prev_pyr, depth_t, rgb_t)
-            self.T_world.copy_(T)
-            self.motion.copy_(motion)
-        else:
-            # the frame's own depth / rgb are copied into the graph's input,
-            # and its pose cloned after the replay: later replays overwrite
-            # neither
-            summary = self._graph.run(
-                self._step, (depth_t, rgb_t), (self.T_world, self.motion, self.last_kf_T),
-                (self._traj_T, self._traj_kfT), self._traj_i, self.prev_pyr)
-            T = self.T_world.clone()
+        with timer.section("session.track"):
+            if self._graph is None:
+                self.prev_pyr, T, motion, summary = self._step(self.prev_pyr, depth_t,
+                                                               rgb_t)
+                self.T_world.copy_(T)
+                self.motion.copy_(motion)
+            else:
+                # the frame's own depth / rgb are copied into the graph's
+                # input, and its pose cloned after the replay: later replays
+                # overwrite neither
+                summary = self._graph.run(
+                    self._step, (depth_t, rgb_t),
+                    (self.T_world, self.motion, self.last_kf_T),
+                    (self._traj_T, self._traj_kfT), self._traj_i, self.prev_pyr)
+                T = self.T_world.clone()
         self._traj_ts.append(ts)
         self._frame_kf_idx.append(self.last_kf_idx)
         st = FrameStats(ts, 0.0, -1.0, -1.0, False, True)  # until it lands
@@ -659,7 +685,7 @@ class SLAMSession:
             rgb=rgb_t, traj_i=traj_i, frame_i=self._frame_i, T=T,
         )
         self._frame_i += 1
-        return self._finish(st, t0)
+        return st
 
     def _step(self, prev_pyr, depth_t, rgb_t):
         """The eager steady-state frame on the session's state (what the
@@ -682,7 +708,8 @@ class SLAMSession:
 
     def _resolve_entry(self, e: _PendingFrame):
         """Apply one frame's control decisions."""
-        vf, rmse, finite, should = e.values()
+        with self.timer.section("session.wait"):
+            vf, rmse, finite, should = e.values()
         e.st.inlier_fraction = vf
         e.st.icp_rmse = rmse
         e.st.tracking_ok = vf > 0.25 and finite > 0.5
@@ -736,8 +763,9 @@ class SLAMSession:
     def _keyframe(self, ts, depth_t, rgb_t, T_pose) -> dict:
         """A keyframe: the insert, then its backend pass. -> {"ba_rmse",
         "loop"} of an inline pass, {} otherwise."""
-        kf_idx = self._insert_keyframe(ts, depth_t, rgb_t, T_pose)
-        return {} if kf_idx is None else self._backend(kf_idx)
+        with self.timer.section("session.insert"):
+            kf_idx = self._insert_keyframe(ts, depth_t, rgb_t, T_pose)
+            return {} if kf_idx is None else self._backend(kf_idx)
 
     def _insert_keyframe(self, ts, depth_t, rgb_t, T_pose=None) -> Optional[int]:
         """Insert a keyframe observed at pose `T_pose` (the frame's own pose
@@ -750,14 +778,16 @@ class SLAMSession:
         if self._n_kf_host >= M:
             log.warning("keyframe capacity %d reached; insert dropped", M)
             return None
-        kp, desc, pts, ok = self._features(depth_t, rgb_t)
+        with self.timer.section("session.insert.features"):
+            kp, desc, pts, ok = self._features(depth_t, rgb_t)
         prev_kf_idx = self.last_kf_idx
         kf_idx = self._n_kf_host
-        self.map, self.edges, self.n_edges, last_kf_T, _n_culled = _kf_insert(
-            self.map, self.edges, self.n_edges, kp.uv, desc.signs, pts, ok,
-            T_pose, float(ts), prev_kf_idx, kf_idx, self.cfg, self._blk,
-        )
-        self.last_kf_T.copy_(last_kf_T)
+        with self.timer.section("session.insert.map"):
+            self.map, self.edges, self.n_edges, last_kf_T, _n_culled = _kf_insert(
+                self.map, self.edges, self.n_edges, kp.uv, desc.signs, pts, ok,
+                T_pose, float(ts), prev_kf_idx, kf_idx, self.cfg, self._blk,
+            )
+            self.last_kf_T.copy_(last_kf_T)
         self._n_kf_host += 1
         self.last_kf_idx = kf_idx
         self.state.keyframes += 1
@@ -771,7 +801,7 @@ class SLAMSession:
         job = bworker.BackendJob(
             map=self.map, edges=self.edges, n_edges=self.n_edges, kf_idx=kf_idx,
             n_kf=self._n_kf_host, allow_loop=self._allow_loop(kf_idx),
-            generation=self._loop_gen,
+            generation=self._loop_gen, call=self._frame_i,
         )
         if self.worker is not None:
             job.map, job.ready = bworker.snapshot(self.map)
@@ -874,6 +904,7 @@ class SLAMSession:
         not ended on some rank within `timeout` raises `TimeoutError` on
         every rank."""
         self.flush_pipeline()
+        self._log_window()
         if self.worker is not None:
             if self._deferred_job is not None:
                 job, self._deferred_job = self._deferred_job, None
@@ -918,7 +949,9 @@ class SLAMSession:
 
     def close(self):
         """Stop the backend worker (its in-flight job is drained first), then
-        leave the worker's process groups of a threaded sharded session."""
+        leave the worker's process groups of a threaded sharded session. A
+        waiting `frame_window` record is logged first."""
+        self._log_window()
         try:
             self._stop_worker()
         finally:
@@ -935,29 +968,52 @@ class SLAMSession:
 
     def _finish(self, st: FrameStats, t0: float) -> FrameStats:
         st.track_ms = (time.monotonic() - t0) * 1e3
-        self.timer.add("frame", st.track_ms / 1e3)
         self.state.frames += 1
         self.state.last_heartbeat = time.monotonic()
         self.stats.append(st)
-        every = self.cfg.runtime.metrics_every_frames
-        if self.metrics is not None and every and self.state.frames % every == 0:
-            recent = self.stats[-every:]
-            mean_ms = sum(s.track_ms for s in recent) / len(recent)
-            # the newest frame's inlier fraction is still in flight
-            # (placeholder -1): the mean is over the resolved ones
-            inl = [s.inlier_fraction for s in recent if s.inlier_fraction >= 0]
-            self.metrics.log(
-                "frame_window",
-                frames=self.state.frames,
-                fps=round(1e3 / max(mean_ms, 1e-6), 2),
-                mean_track_ms=round(mean_ms, 3),
-                inlier_fraction=round(sum(inl) / max(len(inl), 1), 4),
-                keyframes=self.state.keyframes,
-                map_points=self.map_point_count(),  # a device read-back
-                loops=self.state.loops,
-                lost=self.state.lost,
-            )
+        if self.metrics is not None:
+            self._frame_window()
         return st
+
+    def _frame_window(self):
+        """Every `runtime.metrics_every_frames` frames, a `frame_window`
+        record; it is logged once its map point count has landed."""
+        if self._window is not None and self._window[2].query():
+            self._log_window()
+        every = self.cfg.runtime.metrics_every_frames
+        if not every or self.state.frames % every:
+            return
+        self._log_window()  # (its count landed long ago)
+        recent = self.stats[-every:]
+        mean_ms = sum(s.track_ms for s in recent) / len(recent)
+        # the newest frame's inlier fraction is still in flight
+        # (placeholder -1): the mean is over the resolved ones
+        inl = [s.inlier_fraction for s in recent if s.inlier_fraction >= 0]
+        fields = dict(
+            frames=self.state.frames,
+            fps=round(1e3 / max(mean_ms, 1e-6), 2),
+            mean_track_ms=round(mean_ms, 3),
+            inlier_fraction=round(sum(inl) / max(len(inl), 1), 4),
+            keyframes=self.state.keyframes,
+            map_points=None,  # set when the count lands
+            loops=self.state.loops,
+            lost=self.state.lost,
+        )
+        count = smap.map_point_count(self.map, self._blk)
+        self._window = (fields, *self._fetch_async(count))
+        if self._window[2] is None:  # on the CPU the count is there
+            self._log_window()
+
+    def _log_window(self):
+        """Log the waiting `frame_window` record with its map point count,
+        waiting for the count if it has not landed."""
+        w, self._window = self._window, None
+        if w is not None:
+            fields, count, event = w
+            if event is not None:
+                event.synchronize()
+            fields["map_points"] = int(count)
+            self.metrics.log("frame_window", **fields)
 
     def _grow_traj_ring(self):
         pad = torch.zeros((self._traj_cap, 4, 4), device=self.device)
@@ -1002,14 +1058,15 @@ class SLAMSession:
 
     def reset(self):
         """Full reset: a fresh session on the same config, backend mode,
-        device, metrics sink, mesh (a sharded session keeps its blocks) and
-        frame mode; the worker, if any, is drained and stopped first. What
-        a session allocates once is kept: the pinned upload ring (a slot's
-        event still guards its last copy), the frame graph with its memory
-        pool, the static tensors it reads, which are set to a fresh
-        session's values in place (a grown ring keeps its size), and the
-        worker's process groups."""
+        device, metrics sink, span recorder (`timer`), mesh (a sharded
+        session keeps its blocks) and frame mode; the worker, if any, is
+        drained and stopped first. What a session allocates once is kept:
+        the pinned upload ring (a slot's event still guards its last copy),
+        the frame graph with its memory pool, the static tensors it reads,
+        which are set to a fresh session's values in place (a grown ring
+        keeps its size), and the worker's process groups."""
         self._stop_worker()
+        self._log_window()
         self._fresh()
 
     # ------------------------------------------------------------ outputs

@@ -34,6 +34,7 @@ from slam_rgbd_tpu_torch.core import config as tc
 from slam_rgbd_tpu_torch.core import se3 as tse3
 from slam_rgbd_tpu_torch.mapping import map as tmap
 from slam_rgbd_tpu_torch.runtime import session as tsess
+from slam_rgbd_tpu_torch.runtime.profiling import MetricsLog, StageTimer
 from test_torch_priority import below_the_jax_files  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -479,6 +480,33 @@ def test_stale_result_is_dropped_at_the_merge():
         assert torch.equal(sess.T_world, T0) and sess.worker.skipped == 1
     finally:
         sess.close()
+
+
+def test_queue_spans_follow_their_jobs(gate):
+    """A job that ran has one `worker.queue` span in its session's sink,
+    from its submit to the start of its pass, with the call id of the
+    frame that made it; a displaced job has none."""
+    log = MetricsLog(spans=True)
+    w = tworker.BackendWorker(TCFG, "cpu", timer=StageTimer(log))
+    try:
+        jobs = {kf: dataclasses.replace(_job(kf), call=10 * kf) for kf in (1, 2, 3)}
+        w.submit(jobs[1])
+        assert _wait(lambda: len(gate.started) == 1)
+        w.submit(jobs[2])
+        w.submit(jobs[3])  # displaces 2
+        gate.release(1)
+        w.flush(10)
+        w.advance()  # 3 starts
+        gate.release(3)
+        w.flush(10)
+    finally:
+        w.stop(timeout=10)
+    assert [kf for kf, _ in gate.started] == [1, 3] and w.skipped == 1
+    queued = [s for s in log.spans if s.name == "worker.queue"]
+    assert [s.call for s in queued] == [10, 30]
+    assert [s.start for s in queued] == [jobs[1].submitted, jobs[3].submitted]
+    assert all(s.parent is None and s.end >= s.start for s in queued)
+    assert queued[1].end > queued[0].end  # 3 waited for 1's pass
 
 
 def test_flush_returns_the_in_flight_result(gate, worker):
