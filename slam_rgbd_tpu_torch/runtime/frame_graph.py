@@ -1,4 +1,5 @@
-"""The steady-state frame as one CUDA graph: captured once, replayed a frame.
+"""The steady-state frame and the keyframe's feature stage as CUDA graphs:
+each captured once, replayed a call.
 
 Counterpart of the reference's `jax.jit(_steady_step)`: one dispatch a
 frame, with nothing on the host between its operations. Eager, the same
@@ -7,6 +8,12 @@ with its 22 GN launches, the flow shifts, the control summary, the ring
 writes), each queued by the host. `FrameGraph.run` records them once and
 replays the recording; the replay runs the same kernels in the same order
 on the same addresses, so it gives the eager step's bits.
+
+`FeatureGraph.run` does the same for the feature stage of a keyframe insert
+and of a relocalization (`runtime.session._features`: FAST, Harris, NMS and
+a stable sort at each pyramid level, then the descriptors and the keypoint
+depth): some 3,300 operations, with fixed shapes and no read-back, become
+one replay.
 
 A graph reads and writes fixed addresses. What the step reads and writes
 therefore lives in static tensors that are updated in place and never
@@ -24,9 +31,12 @@ session (`runtime.session.SLAMSession`):
      graph reads (and, for the first two, writes). The session writes them
      with `copy_` only, so work queued before a write still sees the old
      value, as the eager step does.
-  4. What a pending frame keeps. The frame is uploaded into a tensor of its
-     own and copied into the graph's input buffers before the replay; its
-     pose is cloned after the replay. A later replay overwrites neither.
+  4. What a caller keeps. The frame is uploaded into a tensor of its own
+     and copied into the graph's input buffers before the replay; a
+     pending frame's pose is cloned after the replay, and the feature
+     graph returns clones of every output (the keypoints, descriptors,
+     points and mask an insert writes into the map or a relocalization
+     matches). A later replay overwrites none of them.
   5. The summary. The graph's (4,) summary is copied to the host after the
      replay and before the next one, in stream order.
   6. The kernels' workspaces and counters. K1's scratch and ticket counters
@@ -35,15 +45,18 @@ session (`runtime.session.SLAMSession`):
      workspace the graph bakes in exists before the capture (a capture
      would otherwise record its allocation and zeroing), and its counters
      are zero at every replay, since every launch leaves them zero. The
-     launch counters of the frame's wrappers (K1, K1b) are host Python:
-     what the capture added is taken back, and every replay adds it again,
-     so a count still says how many times the kernel ran. Two graphs whose capture streams
+     same run fills the feature stage's cached constants (the pyramid's
+     resize weights, the BRIEF pattern), so the capture records no upload
+     from the host. The launch counters of the frame's wrappers (K1, K1b)
+     are host Python: what the capture added is taken back, and every
+     replay adds it again, so a count still says how many times the kernel
+     ran. Two graphs whose capture streams
      share a handle share one workspace; replays queued on one stream run
      in turn, so they never use it at once.
   7. Other threads. The capture uses `capture_error_mode="thread_local"`,
      so the backend worker's thread may run its pass on its own stream
-     meanwhile. The graph and its memory pool belong to the `FrameGraph`,
-     which the session keeps across `reset()`.
+     meanwhile. Each graph and its memory pool belong to its `FrameGraph`
+     or `FeatureGraph`, which the session keeps across `reset()`.
   8. TF32 stays as the session set it (off), the same in the capture as in
      the eager step.
   9. Garbage. Destroying a CUDA graph while a stream captures invalidates
@@ -52,8 +65,8 @@ session (`runtime.session.SLAMSession`):
      with the collector off.
 
 A capture that fails raises; nothing falls back to the eager step. The
-eager step stays the plain version: the session runs it on the CPU, and on
-the card when asked (`SLAMSession(..., cuda_graph=False)`).
+eager functions stay the plain version: the session runs them on the CPU,
+and on the card when asked (`SLAMSession(..., cuda_graph=False)`).
 """
 
 from __future__ import annotations
@@ -77,7 +90,99 @@ def _leaves(pyr) -> list:
     return [lvl[k] for lvl in pyr for k in sorted(lvl)]
 
 
-class FrameGraph:
+def _tensors(out) -> list:
+    """The tensors of a tensor or a (named) tuple of them, nested."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in _tensors(x)]
+
+
+def _cloned(out):
+    """`out` with every tensor cloned, its (named) tuples rebuilt."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    parts = [_cloned(x) for x in out]
+    return type(out)(*parts) if hasattr(out, "_fields") else type(out)(parts)
+
+
+class _Graph:
+    """A function of static input buffers, captured once as a CUDA graph on
+    a stream of its own, in its own memory pool, and replayed: what
+    `FrameGraph` and `FeatureGraph` share (hazards 6, 7 and 9). `captures`
+    and `replays` count both."""
+
+    what = "a CUDA graph"  # what the error of a failed capture names
+
+    def __init__(self, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.graph = None
+        self.captures = 0
+        self.replays = 0
+        self._inputs = None  # the buffers the graph reads
+        self._out = None  # the graph's outputs
+        self._per_replay = {}  # counter -> launches a replay
+
+    def _replay(self, inputs):
+        """Copy `inputs` into the graph's buffers and replay it on the
+        current stream. -> the graph's outputs (overwritten by the next
+        replay)."""
+        for buf, x in zip(self._inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        self.replays += 1
+        for c, n in self._per_replay.items():
+            c.launches += n
+        return self._out
+
+    def _capture(self, body, inputs):
+        """`body(buffers)` on copies of `inputs`: once eagerly on the
+        capture stream, then captured. -> the eager run's output, this
+        call's result."""
+        self.graph = self._out = None
+        main = torch.cuda.current_stream(self.device)
+        bufs = tuple(torch.empty_like(x) for x in inputs)
+        for buf, x in zip(bufs, inputs):
+            buf.copy_(x)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            # the call, eagerly, on the capture stream: it builds what the
+            # capture must find built (the kernels' library and constants,
+            # this stream's workspaces, the solver handles)
+            result = body(bufs)
+        main.wait_stream(self.stream)
+        for t in _tensors(result):
+            t.record_stream(main)
+        before = {c: c.launches for c in _counters()}
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collection there could
+        # free another session's graph, and destroying a graph is not
+        # permitted while a stream captures (it invalidates the capture)
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                out = body(bufs)
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing {self.what} as a CUDA graph failed; pass "
+                "cuda_graph=False to run it eagerly") from exc
+        finally:
+            if gc_on:
+                gc.enable()
+            captured = {c: c.launches - n for c, n in before.items()}
+            for c, n in before.items():
+                c.launches = n
+        self._per_replay = {c: n for c, n in captured.items() if n}
+        self.graph, self._inputs, self._out = graph, bufs, out
+        self.captures += 1
+        return result
+
+
+class FrameGraph(_Graph):
     """One captured steady-state frame of a session on a CUDA device.
 
     `run(step, inputs, state, ring, traj_i, prev_pyr)`: `step(prev_pyr, depth,
@@ -91,19 +196,12 @@ class FrameGraph:
     every other call copies the inputs in and replays.
     """
 
+    what = "the steady-state frame"
+
     def __init__(self, device: torch.device):
-        if device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
-        self.graph = None
-        self.captures = 0
-        self.replays = 0
+        super().__init__(device)
         self._key = None  # what the graph was captured on (holds them)
         self.pyr = None  # the static previous-frame pyramid of the capture
-        self._inputs = None  # (depth, rgb) buffers the graph reads
-        self._summary = None  # the graph's output
-        self._per_replay = {}  # counter -> launches a replay
 
     def _signature(self, inputs, state, ring, traj_i, prev_pyr):
         return (tuple((x.shape, x.dtype) for x in inputs),
@@ -118,15 +216,13 @@ class FrameGraph:
 
     def run(self, step, inputs, state, ring, traj_i, prev_pyr) -> torch.Tensor:
         key = self._signature(inputs, state, ring, traj_i, prev_pyr)
-        if self.graph is None or not self._matches(key):
-            return self._capture(step, inputs, state, prev_pyr, key)
-        for buf, x in zip(self._inputs, inputs):
-            buf.copy_(x)
-        self.graph.replay()
-        self.replays += 1
-        for c, n in self._per_replay.items():
-            c.launches += n
-        return self._summary
+        if self.graph is not None and self._matches(key):
+            return self._replay(inputs)
+        self._key = None
+        summary = self._capture(lambda bufs: self._body(step, bufs, state, prev_pyr),
+                                inputs)
+        self._key, self.pyr = key, prev_pyr
+        return summary
 
     def adopt_pyramid(self, pyr):
         """A bootstrap pyramid as the previous-frame pyramid: copied in place
@@ -152,43 +248,29 @@ class FrameGraph:
             dst.copy_(src)
         return summary
 
-    def _capture(self, step, inputs, state, prev_pyr, key) -> torch.Tensor:
-        self.graph = self._key = self._summary = None
-        main = torch.cuda.current_stream(self.device)
-        bufs = tuple(torch.empty_like(x) for x in inputs)
-        for buf, x in zip(bufs, inputs):
-            buf.copy_(x)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            # this frame, eagerly, on the capture stream: it builds what the
-            # capture must find built (the kernels' library and constants,
-            # this stream's workspaces, the solver handles)
-            summary = self._body(step, bufs, state, prev_pyr)
-        main.wait_stream(self.stream)
-        summary.record_stream(main)
-        before = {c: c.launches for c in _counters()}
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture: a collection there could
-        # free another session's graph, and destroying a graph is not
-        # permitted while a stream captures (it invalidates the capture)
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                out = self._body(step, bufs, state, prev_pyr)
-        except Exception as exc:
-            raise RuntimeError(
-                "capturing the steady-state frame as a CUDA graph failed; pass "
-                "cuda_graph=False to run it eagerly") from exc
-        finally:
-            if gc_on:
-                gc.enable()
-            captured = {c: c.launches - n for c, n in before.items()}
-            for c, n in before.items():
-                c.launches = n
-        self._per_replay = {c: n for c, n in captured.items() if n}
-        self.graph, self._key, self._inputs, self._summary = graph, key, bufs, out
-        self.pyr = prev_pyr
-        self.captures += 1
-        return summary
+
+class FeatureGraph(_Graph):
+    """The feature stage of a session on a CUDA device, captured once.
+
+    `features(depth, rgb) -> (Keypoints, Descriptors, pts, ok)` is the eager
+    stage; `run(depth, rgb)` returns what it returns for the frame's depth
+    (int32 (H, W)) and rgb (uint8 (H, W, 3)). The first call, and any call
+    at another input shape or type, runs the stage eagerly on the capture
+    stream (that run is the call's result) and then captures it; every
+    other call copies the frame in, replays, and returns clones of the
+    graph's outputs (hazard 4).
+    """
+
+    what = "the keyframe's feature stage"
+
+    def __init__(self, device: torch.device, features):
+        super().__init__(device)
+        self.features = features
+
+    def run(self, depth: torch.Tensor, rgb: torch.Tensor):
+        inputs = (depth, rgb)
+        if self.graph is not None and all(
+                b.shape == x.shape and b.dtype == x.dtype
+                for b, x in zip(self._inputs, inputs)):
+            return _cloned(self._replay(inputs))
+        return self._capture(lambda bufs: self.features(*bufs), inputs)

@@ -42,7 +42,12 @@ ring writes) is one CUDA graph replay (`runtime.frame_graph.FrameGraph`),
 the counterpart of the reference's single jitted `_steady_step`; the eager
 step is its plain version (the CPU's path, and the card's with
 `cuda_graph=False`). The pose state it reads (`T_world`, `motion`,
-`last_kf_T`) is written in place only.
+`last_kf_T`) is written in place only. Under the same switch the feature
+stage of a keyframe insert and of a relocalization (`_features`) is one
+replay of a second graph (`runtime.frame_graph.FeatureGraph`), captured by
+`warmup()` or else at the first insert, and kept by `reset()`; the replay
+returns clones of its outputs, which a later replay does not overwrite.
+`BatchSession` and `benchmarks.py` run the eager `_features`.
 
 Map-block sharded mode (`mesh=` with a `model` axis above 1): each rank is
 a process holding its block of the point table (every `pt_*` array; the
@@ -101,6 +106,7 @@ after every cooldown.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -123,7 +129,7 @@ from slam_rgbd_tpu_torch.mapping import map as smap
 from slam_rgbd_tpu_torch.odometry.icp import track_frame
 from slam_rgbd_tpu_torch.parallel import dist as pdist
 from slam_rgbd_tpu_torch.parallel import mesh as pmesh
-from slam_rgbd_tpu_torch.runtime.frame_graph import FrameGraph
+from slam_rgbd_tpu_torch.runtime.frame_graph import FeatureGraph, FrameGraph
 from slam_rgbd_tpu_torch.runtime.profiling import StageTimer
 from slam_rgbd_tpu_torch.runtime.staging import PinnedStaging, upload_plain
 
@@ -361,13 +367,13 @@ class SLAMSession:
     `runtime.profiling.MetricsLog` for the `frame_window` and `backend`
     records, and, if it keeps spans, those of `timer`.
 
-    `cuda_graph`: run the steady-state frame as a CUDA graph replay (the
-    default on a CUDA device; True on the CPU raises); False runs the eager
-    step. `mesh`: a `torch.distributed` `DeviceMesh` (`parallel.mesh.
-    make_mesh`); with a `model` axis above 1 the session holds this rank's
-    block of the point table, and every rank of the axis must drive its
-    session with the same frames and calls (map-block sharded mode), the
-    backend inline or threaded. A mesh without a `model` axis, or with one
+    `cuda_graph`: run the steady-state frame and the keyframe's feature
+    stage as CUDA graph replays (the default on a CUDA device; True on the
+    CPU raises); False runs both eagerly. `mesh`: a `torch.distributed`
+    `DeviceMesh` (`parallel.mesh.make_mesh`); with a `model` axis above 1
+    the session holds this rank's block of the point table, and every rank
+    of the axis must drive its session with the same frames and calls
+    (map-block sharded mode), the backend inline or threaded. A mesh without a `model` axis, or with one
     of size 1, is the unsharded path.
     """
 
@@ -396,6 +402,8 @@ class SLAMSession:
         elif cuda_graph and self.device.type != "cuda":
             raise ValueError(f"cuda_graph=True needs a CUDA device, not {self.device}")
         self._graph = FrameGraph(self.device) if cuda_graph else None
+        self._feature_graph = FeatureGraph(self.device, functools.partial(
+            _features, orb=config.orb, cam=config.camera)) if cuda_graph else None
         # host frames: the plain copy on the CPU; on a card a ring of two
         # pinned slots, one for the pending frame and one for the frame
         # uploaded before it resolves
@@ -540,8 +548,8 @@ class SLAMSession:
         relocalization solve (whose batched SVD loads a solver library at
         first use), the trajectory correction, a backend merge, and on a
         card the pinned ring of host frames at the camera's shape and the
-        capture of the frame graph (both kept by `reset()`). Must run on a
-        fresh session; ends with `reset()`.
+        captures of the frame graph and the feature graph (all kept by
+        `reset()`). Must run on a fresh session; ends with `reset()`.
         """
         cfg = self.cfg
         cam = cfg.camera
@@ -592,6 +600,10 @@ class SLAMSession:
             orb.n_features, orb.n_levels, orb.scale_factor))
 
     def _features(self, depth_t, rgb_t):
+        """The feature stage of a frame on the device: the feature graph's
+        replay, or the eager `_features`."""
+        if self._feature_graph is not None:
+            return self._feature_graph.run(depth_t, rgb_t)
         return _features(depth_t, rgb_t, self.cfg.orb, self.cfg.camera)
 
     # ------------------------------------------------------------- inputs
@@ -1064,7 +1076,8 @@ class SLAMSession:
         the pinned upload ring (a slot's event still guards its last copy),
         the frame graph with its memory pool, the static tensors it reads,
         which are set to a fresh session's values in place (a grown ring
-        keeps its size), and the worker's process groups."""
+        keeps its size), the feature graph, and the worker's process
+        groups."""
         self._stop_worker()
         self._log_window()
         self._fresh()

@@ -529,6 +529,156 @@ def test_a_failed_capture_raises_on_card(cuda_device, monkeypatch):
     torch.cuda.synchronize()
 
 
+def _feature_stage(device):
+    """The Astra configuration's feature stage, eager, and three 640x480
+    frames on `device`: the warm-up's textured plane, a rendered sweep frame,
+    and a smooth frame with almost no corners."""
+    import functools
+
+    from slam_rgbd_tpu_torch.core.config import astra_default_config
+    from slam_rgbd_tpu_torch.runtime import session as tsession
+
+    cfg = astra_default_config()
+    cam = cfg.camera
+    yy, xx = np.meshgrid(np.arange(cam.height), np.arange(cam.width), indexing="ij")
+    plane = ((1800.0 + 2.0 * xx + 1.5 * yy).astype(np.int32),
+             np.broadcast_to((((xx // 8 + yy // 8) % 2) * 160 + 48).astype(np.uint8)[
+                 ..., None], (cam.height, cam.width, 3)))
+    _, d, c = SyntheticSequence(2, cam, sweep=True, device=device).frame(1)
+    smooth = (np.full((cam.height, cam.width), 2000, np.int32),
+              np.broadcast_to((64 + xx // 8).astype(np.uint8)[..., None],
+                              (cam.height, cam.width, 3)))
+    frames = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in f)
+              for f in (plane, (d.astype(np.int32), c), smooth)]
+    return functools.partial(tsession._features, orb=cfg.orb, cam=cam), frames
+
+
+@pytest.mark.cuda
+def test_feature_graph_equals_the_eager_stage_on_card(cuda_device):
+    """The keyframe's feature stage at 640x480, ORB 1024 x 8, replayed from
+    one capture on three frames (a textured plane, a rendered frame, a
+    frame with almost no corners), twice each: every output (keypoints'
+    uv, response, angle, level and mask, descriptors' words, signs and
+    angle, points, mask) equals the eager stage's bit for bit."""
+    from slam_rgbd_tpu_torch.runtime.frame_graph import FeatureGraph, _tensors
+
+    features, frames = _feature_stage(cuda_device)
+    graph = FeatureGraph(cuda_device, features)
+    n_valid = []
+    for f in frames + frames:
+        got, want = graph.run(*f), features(*f)
+        assert [type(x) for x in got] == [type(x) for x in want]
+        for a, b in zip(_tensors(got), _tensors(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        n_valid.append(int(got[0].valid.sum()))
+    assert graph.captures == 1 and graph.replays == 2 * len(frames) - 1
+    assert got[1].signs.shape == (1024, 256)
+    assert min(n_valid[:2]) > 100 and n_valid[2] < 10
+
+
+@pytest.mark.cuda
+def test_feature_graph_returns_clones_a_later_replay_leaves_alone_on_card(cuda_device):
+    """What a replay returns is the caller's own: a second replay on another
+    frame leaves every tensor of the first call's result as it was."""
+    from slam_rgbd_tpu_torch.runtime.frame_graph import FeatureGraph, _tensors
+
+    features, frames = _feature_stage(cuda_device)
+    graph = FeatureGraph(cuda_device, features)
+    graph.run(*frames[2])  # the capture
+    kept = graph.run(*frames[0])
+    before = [t.clone() for t in _tensors(kept)]
+    other = graph.run(*frames[1])
+    assert graph.replays == 2
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(kept), before))
+    assert not torch.equal(kept[1].signs, other[1].signs)
+    held = {t.data_ptr() for t in _tensors(graph._out)}
+    assert held.isdisjoint(t.data_ptr() for t in _tensors(kept) + _tensors(other))
+
+
+@pytest.mark.cuda
+def test_feature_graph_session_equals_the_eager_session_on_card(cuda_device, monkeypatch):
+    """The sweep with a lost and relocalized frame, after `warmup()`, in a
+    session with `cuda_graph` and one without: the same keyframes, poses
+    and map tensors bit for bit. The graph session's feature stage was
+    captured once, in `warmup()`, and replayed for every insert and every
+    relocalization after it."""
+    import dataclasses
+
+    cfg = _graph_config()
+    frames = _sweep_with_a_lost_frame(cuda_device, 30)
+    real_reloc = SLAMSession._relocalize
+    tries = [0]
+
+    def counted(self, *args, **kw):
+        tries[0] += 1
+        return real_reloc(self, *args, **kw)
+
+    monkeypatch.setattr(SLAMSession, "_relocalize", counted)
+    runs = {}
+    for graph in (False, True):
+        sess = SLAMSession(cfg, device=cuda_device, cuda_graph=graph)
+        sess.warmup()
+        fg = sess._feature_graph
+        replays = None if fg is None else (fg.captures, fg.replays)
+        tries[0] = 0
+        for f in frames:
+            sess.process_frame(*f)
+        runs[graph] = (sess, sess.poses()[1], sess.keyframe_poses()[1], tries[0],
+                       replays)
+    (eager, *e), (sess, *g) = runs[False], runs[True]
+    assert eager._feature_graph is None and g[3] == (1, 3)
+    fg = sess._feature_graph
+    assert fg.captures == 1 and g[2] == e[2] >= 1 and sess.state.relocalized >= 1
+    assert fg.replays - g[3][1] == sess.state.keyframes + g[2]
+    assert sess.state.keyframes == eager.state.keyframes >= 3
+    assert np.array_equal(g[0], e[0]) and np.array_equal(g[1], e[1])
+    for fld in dataclasses.fields(sess.map):
+        a, b = getattr(sess.map, fld.name), getattr(eager.map, fld.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, fld.name
+
+
+@pytest.mark.cuda
+def test_feature_graph_capture_while_the_backend_worker_runs_a_job_on_card(
+        cuda_device, monkeypatch):
+    """A threaded session whose feature graph is dropped once the worker
+    holds a job (its pass is held a while): the next insert captures the
+    feature stage again while the pass runs on the worker's stream; the
+    capture and the pass both succeed, and the session tracks on."""
+    import time
+
+    from slam_rgbd_tpu_torch.backend import worker as tworker
+    from slam_rgbd_tpu_torch.runtime.frame_graph import FeatureGraph
+
+    real_pass, real_capture = tworker.backend_pass, FeatureGraph._capture
+    busy_at_capture = []
+
+    def held_pass(*args, **kw):
+        res = real_pass(*args, **kw)
+        time.sleep(0.5)
+        return res
+
+    def watched_capture(self, *args, **kw):
+        busy_at_capture.append(sess.worker._job is not None)
+        return real_capture(self, *args, **kw)
+
+    monkeypatch.setattr(tworker, "backend_pass", held_pass)
+    monkeypatch.setattr(FeatureGraph, "_capture", watched_capture)
+    sess = SLAMSession(_graph_config(), async_backend=True, device=cuda_device)
+    fg, dropped = sess._feature_graph, False
+    try:
+        for f in SyntheticSequence(16, CAM, sweep=True, device=cuda_device):
+            sess.process_frame(*f)
+            if not dropped and sess.worker._job is not None:
+                fg.graph, dropped = None, True
+        sess.sync_backend()
+        completed = sess.worker.completed
+        T = sess.poses()[1]
+    finally:
+        sess.close()
+    assert busy_at_capture == [False, True] and fg.captures == 2 and fg.replays >= 1
+    assert completed >= 1 and sess.state.lost == 0 and np.isfinite(T).all()
+
+
 @pytest.mark.cuda
 def test_lost_frame_relocalizes_on_card(cuda_device):
     """The serving route of a relocalization on the card: a frame whose

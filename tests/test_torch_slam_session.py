@@ -359,11 +359,36 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 def test_cuda_graph_on_the_cpu_raises_and_the_eager_step_is_its_path():
     """The frame graph is for a CUDA device: asked for on the CPU it raises;
-    the CPU's session runs the eager step (no graph)."""
+    the CPU's session runs the eager step (no graph), and holds no feature
+    graph either."""
     with pytest.raises(ValueError, match="cuda_graph"):
         SLAMSession(CFG, device="cpu", cuda_graph=True)
-    assert SLAMSession(CFG, device="cpu")._graph is None
-    assert SLAMSession(CFG, device="cpu", cuda_graph=False)._graph is None
+    for sess in (SLAMSession(CFG, device="cpu"),
+                 SLAMSession(CFG, device="cpu", cuda_graph=False)):
+        assert sess._graph is None and sess._feature_graph is None
+
+
+def test_the_cpu_session_inserts_and_relocalizes_through_the_eager_features(
+        monkeypatch):
+    """The CPU session holds no feature graph: its keyframe insert and its
+    relocalization call the eager `_features`, once each."""
+    sess = SLAMSession(CFG, device="cpu")
+    assert sess._feature_graph is None
+    calls = []
+    real = tsess._features
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tsess, "_features", counted)
+    yy, xx = np.meshgrid(np.arange(CAM.height), np.arange(CAM.width), indexing="ij")
+    depth = (1800.0 + 2.0 * xx + 1.5 * yy).astype(np.uint16)
+    rgb = np.broadcast_to((((xx // 8 + yy // 8) % 2) * 160 + 48).astype(np.uint8)[
+        ..., None], (CAM.height, CAM.width, 3)).copy()
+    assert sess._insert_keyframe(0.0, sess._upload(depth), sess._upload(rgb)) == 0
+    sess._relocalize(depth, rgb)
+    assert calls == [(CAM.height, CAM.width)] * 2
 
 
 # ---- the feature stage --------------------------------------------------------
