@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import gc
 import json
+import statistics
 import sys
 import time
 
@@ -70,14 +71,38 @@ def window_shares(rec: drive.Record) -> dict:
     return shares
 
 
+def span_rows(rec: drive.Record) -> list:
+    """The window's spans, each {name, parent, thread, call, start_s, end_s
+    (seconds of the window), traced (it overlaps the profiler's slice)}."""
+    lo, hi = (rec.trace or {}).get("slice_s", (float("inf"), float("-inf")))
+    rows = []
+    for s in rec.spans:
+        a, b = s.start - rec.t0, s.end - rec.t0
+        rows.append({"name": s.name, "parent": s.parent, "thread": s.thread, "call": s.call,
+                     "start_s": a, "end_s": b, "traced": a < hi and b > lo})
+    return rows
+
+
+def span_median_ms(record: dict, name: str) -> float | None:
+    """Median ms of the spans called `name` outside the traced slice; None
+    where there is none."""
+    ms = [1e3 * (s["end_s"] - s["start_s"]) for s in record["spans"]
+          if s["name"] == name and not s["traced"]]
+    return statistics.median(ms) if ms else None
+
+
 def layer_record(rec: drive.Record, conf: dict, card: str) -> dict:
-    """What the per-layer readers read."""
+    """What the per-layer readers read: the window's calls (host clock),
+    the backend passes' `backend_ms`, the worker's counts, the trace's
+    summary, the program's spans (`span_rows`) and its log records (as
+    `MetricsLog.records` holds them)."""
     return {
         "session": rec.kind, "streams": rec.streams, "calls": rec.calls,
         "backend_ms": rec.backend_ms,
         "worker": {"completed": sum(r.completed for r in rec.recordings),
                    "skipped": sum(r.skipped for r in rec.recordings)},
         "trace": rec.trace, "config": conf["slam"], "card": card,
+        "spans": span_rows(rec), "log": rec.log,
     }
 
 
@@ -109,7 +134,7 @@ def prepare(cell: spec.Cell, seed: int, device, traced: bool, process_age) -> di
     if traced:
         from slam_rgbd_tpu_torch.runtime.profiling import MetricsLog
 
-        metrics = MetricsLog()
+        metrics = MetricsLog(spans=True)
     t = time.perf_counter()
     drv.setup(metrics)
     if device.type == "cuda":
@@ -167,9 +192,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
         f"{k} {n} {share:.2f}%" for k, (n, share) in window_shares(rec).items()),
         file=sys.stderr)
     print("portbench: recordings (room ids, keyframes a stream, map points a stream, frames "
-          "lost): " + "; ".join(
+          "lost, loops merged): " + "; ".join(
               f"{sorted(set((r.frames[0] // len(poses)).tolist()))} "
-              f"{keyframes(r)} {r.points} {lost_frames(r)}"
+              f"{keyframes(r)} {r.points} {lost_frames(r)} "
+              f"{'-' if r.loops is None else r.loops}"
               for r in rec.recordings), file=sys.stderr)
     if rec.trace is not None:
         t = rec.trace

@@ -1,8 +1,10 @@
 """The output check: what the timed window produced, against the plain
 reference in `portbench/reference/`, after the window has closed.
 
-Three comparisons, each over a sample drawn from the seed, each one number
-with a limit of its own (`limits/<config>.json`):
+Four comparisons, each over a sample drawn from the seed or fixed slots,
+each one number with a limit of its own (`limits/<config>.json`, or the
+cell's own file for a number its configuration's lacks); a mix's `checks`
+name the numbers its cells have to pass:
 
   * `track_gap_mm`: tracked frames. The reference tracks frame t against
     frame t - 1 from the motion prior the program had (its own relative
@@ -23,6 +25,17 @@ with a limit of its own (`limits/<config>.json`):
     from the job's own snapshot; the gap is the largest over the window's
     keyframe poses and the solved points, and a point that one side solved
     and the other did not counts as a gap of 1 m.
+  * `loop_gap_mm`: backend passes that closed a loop (the single session's
+    first two a recording that merged, kept only where the mix names this
+    number). The reference runs the closing pass from the job's own
+    snapshot and edge list with the program's verified loop edge
+    (`reference/loop.py`): local BA, the pose graph, the points riding with
+    their anchors, landmark fusion and the bounded global BA. The gap is
+    the largest over the snapshot's valid keyframe poses and the points
+    both sides adjusted; a point that one side adjusted and the other did
+    not, a fusion output (the query's row, the ghosts, the observation
+    counts) that differs, or a global BA kept by one side only counts as a
+    gap of 1 m. The fleet's loop closing is not compared.
 
 With `control=True` the reference in TF32 (`precision.tf32_products`) takes
 the program's place: the check's control, which has to fail. The
@@ -39,6 +52,7 @@ import torch
 
 from portbench.reference import ba as ref_ba
 from portbench.reference import features as ref_feat
+from portbench.reference import loop as ref_loop
 from portbench.reference import mapping as ref_map
 from portbench.reference import tracker as ref_track
 from portbench.reference.camera import Camera
@@ -124,6 +138,28 @@ def batch_deltas(T: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     prior = np.tile(np.eye(4), (s, n, 1, 1))
     prior[:, 2:] = delta[:, 1:-1]
     return delta, prior
+
+
+def loop_gap_mm(prog: dict, ref: dict, kf_valid, n_kf: int) -> float:
+    """The largest gap between two results of a closing pass, each a dict
+    as `reference.loop.closing_pass` returns it."""
+    valid = np.flatnonzero(kf_valid[:n_kf].cpu().numpy())
+    A, B = prog["kf_pose"].cpu().numpy(), ref["kf_pose"].cpu().numpy()
+    g = max((pose_gap_mm(A[i], B[i]) for i in valid), default=0.0)
+    a, b = prog["pt_adjusted"], ref["pt_adjusted"]
+    if bool((a != b).any()):
+        g = max(g, MISSING_GAP_MM)
+    both = a & b
+    if both.any():
+        g = max(g, 1e3 * float(torch.linalg.norm(prog["pt_xyz"][both] - ref["pt_xyz"][both],
+                                                 dim=1).max()))
+    fusion = all(torch.equal(prog[k].long(), ref[k].long())
+                 for k in ("fuse_row", "pt_invalidate", "pt_nobs_delta"))
+    if not fusion or prog["n_fused"] != ref["n_fused"]:
+        g = max(g, MISSING_GAP_MM)
+    if prog["global_applied"] != ref["global_applied"]:
+        g = max(g, MISSING_GAP_MM)
+    return g
 
 
 class Checker:
@@ -279,16 +315,39 @@ class Checker:
                 gaps.append(g)
         return (max(gaps) if gaps else None), len(gaps)
 
+    # --------------------------------------------------------------- loops
+    def loops(self, rec, control: bool = False) -> tuple[float | None, int]:
+        """(largest gap in mm, closing passes compared)."""
+        gaps = []
+        for r in rec.recordings:
+            for cap in r.loop_captures:
+                res = cap["result"]
+                cand, _, T_rel = res["loop_edge"]
+
+                def run():
+                    return ref_loop.closing_pass(
+                        cap["snapshot"], cap["edges"], cap["n_edges"], cap["kf_idx"],
+                        cap["n_kf"], cand, T_rel, self.cam, self.slam["ba"])
+
+                ref = run()
+                if control:
+                    prog = self._ref(run, True)
+                else:
+                    prog = dict(res, global_applied=res["global_ba_rmse"] >= 0)
+                gaps.append(loop_gap_mm(prog, ref, cap["snapshot"].kf_valid, cap["n_kf"]))
+        return (max(gaps) if gaps else None), len(gaps)
+
     # --------------------------------------------------------------- all
     def numbers(self, rec, sample: Sample, control: bool = False) -> dict:
         """{number: value or None}, and how many items each compared."""
         track, n_track = self.tracking(rec, sample, control)
         mism, kgap, n_kf = self.keyframes(rec, control)
         bgap, n_ba = self.ba(rec, control)
+        lgap, n_loops = self.loops(rec, control)
         return {"track_gap_mm": track, "kf_mismatch": mism, "kf_point_gap_mm": kgap,
-                "ba_gap_mm": bgap, "_counts": {"tracked": n_track, "keyframes": n_kf,
-                                               "ba_jobs": n_ba,
-                                               "track_gap_median_mm": self.track_median}}
+                "ba_gap_mm": bgap, "loop_gap_mm": lgap,
+                "_counts": {"tracked": n_track, "keyframes": n_kf, "ba_jobs": n_ba,
+                            "loops": n_loops, "track_gap_median_mm": self.track_median}}
 
 
 def verdict(numbers: dict, limits: dict, required: list) -> tuple[bool, list]:

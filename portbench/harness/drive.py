@@ -28,6 +28,24 @@ program's private methods (`SLAMSession._insert_keyframe`, `._backend`,
 and read `_deferred_job`, `_n_kf_host`, `_traj_arrays`, `_n_kf`, `_state`,
 `_traj` and `_traj_ts`: a change to the program that renames them has to
 bring this file along.
+
+Loop capture (the single session, only where the mix's `checks` name
+`loop_gap_mm`; otherwise nothing below is wrapped or kept). The worker's
+`BackendWorker._pass` is wrapped on each recording's worker: a pass that
+ends keeps its job (the snapshot `map`, `edges`, `n_edges`, `kf_idx`,
+`n_kf`) beside its result until `_apply_backend` takes that result, merged
+or dropped, so at most one snapshot is kept beyond those the worker holds.
+The `_apply_backend` wrap keeps, for the first `KEPT_LOOPS` passes of a
+recording that merged a closed loop (`state.loops` rose), the job and the
+result's `kf_pose`, `pt_xyz`, `pt_adjusted`, `loop_edge`, `fuse_row`,
+`pt_invalidate`, `pt_nobs_delta`, `n_fused` and `global_ba_rmse`. The cap
+is fixed, so the kept memory is the same at every seed. The drain's final
+pass runs outside the worker and is never kept.
+
+Spans and records: a traced run hands the session (each recording's
+`BatchSession` too, not the warm-up's) a `MetricsLog(spans=True)`; set-up's
+spans and records are cleared at its end, and the window's are copied into
+the `Record` once the window has closed.
 """
 
 from __future__ import annotations
@@ -40,6 +58,8 @@ import torch
 
 from portbench.harness import traffic
 
+KEPT_LOOPS = 2  # closing passes kept a recording, with loop capture
+
 
 @dataclass
 class Recording:
@@ -49,8 +69,10 @@ class Recording:
     ring: dict = field(default_factory=dict)  # raw logs for the check
     kf_captures: list = field(default_factory=list)
     ba_captures: dict = field(default_factory=dict)
+    loop_captures: list = field(default_factory=list)
     completed: int = 0
     skipped: int = 0
+    loops: int | None = None  # loops the single session merged
 
 
 @dataclass
@@ -63,6 +85,9 @@ class Record:
     frames_done: int = 0
     backend_ms: list = field(default_factory=list)
     trace: dict | None = None
+    t0: float = 0.0  # `time.perf_counter()` at the window's start
+    spans: list = field(default_factory=list)  # the window's `Span`s, traced runs
+    log: list = field(default_factory=list)  # the window's `MetricsLog` records
 
 
 class _Driver:
@@ -79,6 +104,8 @@ class _Driver:
         self.fps = cfg.camera.fps
         self.rooms = rooms  # the seed's order of the rooms
         self.n_frames = int(mix["frames"])
+        self.loops = "loop_gap_mm" in mix["checks"]  # keep closing passes
+        self.metrics = None
 
     # recordings a round: every room once
     round_recordings = 1
@@ -92,7 +119,7 @@ class _Driver:
         after `seconds`."""
         rec = Record(kind=self.conf["session"], streams=self.streams)
         frames = traffic.schedule(self.mix, self.streams, traffic.recording_calls(self.mix))
-        t0 = time.perf_counter()
+        t0 = rec.t0 = time.perf_counter()
         deadline = t0 + seconds
         r_i = 0
         while r_i % self.round_recordings or time.perf_counter() < deadline:
@@ -116,7 +143,18 @@ class _Driver:
             torch.cuda.synchronize(self.device)
         rec.window_s = time.perf_counter() - t0
         self.finish(rec)
+        if self.metrics is not None:
+            rec.spans = list(self.metrics.spans or ())
+            rec.log = list(self.metrics.records)
         return rec
+
+    def _clear(self, metrics):
+        """Forget set-up's spans and records (in place: the session's timer
+        holds the list)."""
+        if metrics is not None:
+            metrics.records.clear()
+            if metrics.spans is not None:
+                metrics.spans.clear()
 
 
 class SingleDriver(_Driver):
@@ -135,8 +173,7 @@ class SingleDriver(_Driver):
             self.sess.process_frame(t / self.fps, self.depth[f], self.rgb[f])
         self._drain()
         self.sess.reset()
-        if metrics is not None:
-            metrics.records.clear()
+        self._clear(metrics)
         self._hook()
 
     def offsets(self, r_i: int) -> np.ndarray:
@@ -148,11 +185,13 @@ class SingleDriver(_Driver):
 
     def _hook(self):
         """Wrap the session's insert, backend submit and merge, to keep
-        references to the sampled keyframes' maps and backend jobs."""
+        references to the sampled keyframes' maps and backend jobs, and
+        with loop capture on the closing passes that merged."""
         s = self.sess
         real_insert, real_backend, real_apply = (
             s._insert_keyframe, s._backend, s._apply_backend)
         self.merged = 0
+        self.ended = {}  # id(result) -> (result, job): passes not yet merged
 
         def insert(ts, depth_t, rgb_t, T_pose=None):
             k = s._n_kf_host
@@ -178,14 +217,51 @@ class SingleDriver(_Driver):
                 cap = self.recording.ba_captures.get(r.snap_kf_idx)
                 if cap is not None and r.generation == cap["generation"]:
                     cap["result"] = (r.kf_pose, r.pt_xyz, r.pt_adjusted, r.loop_edge is not None)
-            return real_apply(r)
+            if not self.loops:
+                return real_apply(r)
+            ended = None if r is None else self.ended.pop(id(r), None)
+            loops = s.state.loops
+            out = real_apply(r)
+            if (ended is not None and ended[0] is r and s.state.loops > loops
+                    and len(self.recording.loop_captures) < KEPT_LOOPS):
+                self._keep_loop(*ended)
+            return out
 
         s._insert_keyframe, s._backend, s._apply_backend = insert, backend, apply
+
+    def _hook_worker(self):
+        """With loop capture, wrap this recording's worker's pass, to keep
+        each job until its result is merged or dropped."""
+        w = self.sess.worker
+        if not self.loops or w is None:
+            return
+        real_pass = w._pass
+        ended = self.ended
+
+        def pass_(job):
+            r = real_pass(job)
+            ended[id(r)] = (r, job)  # (one dict store: safe from the worker's thread)
+            return r
+
+        w._pass = pass_
+
+    def _keep_loop(self, r, job):
+        e = job.edges
+        i, j, T_rel, _ = r.loop_edge
+        self.recording.loop_captures.append({
+            "kf_idx": job.kf_idx, "n_kf": job.n_kf, "snapshot": job.map,
+            "edges": (e.i, e.j, e.T_meas, e.weight, e.valid), "n_edges": int(job.n_edges),
+            "result": {"kf_pose": r.kf_pose, "pt_xyz": r.pt_xyz, "pt_adjusted": r.pt_adjusted,
+                       "loop_edge": (i, j, T_rel), "fuse_row": r.fuse_row,
+                       "pt_invalidate": r.pt_invalidate, "pt_nobs_delta": r.pt_nobs_delta,
+                       "n_fused": r.n_fused, "global_ba_rmse": r.global_ba_rmse}})
 
     def begin(self, recording, r_i):
         if r_i:
             self.sess.reset()
+        self.ended.clear()
         self.recording = recording
+        self._hook_worker()
 
     def call(self, t, frames):
         s = self.sess
@@ -205,6 +281,7 @@ class SingleDriver(_Driver):
                           "ok": np.array([st.inlier_fraction > 0.25 for st in s.stats])}
         recording.est = s.poses()[1][None]
         recording.points = [int(s.map.pt_valid.sum())]
+        recording.loops = s.state.loops
         if s.worker is not None:
             recording.completed, recording.skipped = s.worker.completed, s.worker.skipped
 
@@ -241,6 +318,8 @@ class BatchDriver(_Driver):
             d, c = self.steps[t % len(self.steps)]
             warm.process_frames(t / self.fps, d, c)
         del warm
+        self.metrics = metrics
+        self._clear(metrics)
 
     def offsets(self, r_i: int) -> np.ndarray:
         """Stream b stays in the b-th room of the order in every recording,
@@ -250,7 +329,8 @@ class BatchDriver(_Driver):
 
     def begin(self, recording, r_i):
         self.bs = None
-        self.bs = self.BatchSession(self.cfg, self.streams, device=self.device)
+        self.bs = self.BatchSession(self.cfg, self.streams, device=self.device,
+                                    metrics=self.metrics)
         self.corrected, self.lost = [], []
         self.recording = recording
         self._hook()

@@ -1,9 +1,18 @@
 """A cell's pieces, found by name: its entry in `BENCHMARK.json`, its
 configuration file, its traffic mix (`traffic/<mix>.json`), the readers of
 its per-layer metrics (`layer_metrics/<metric>.py`) and the limits of its
-output check (`limits/<config>.json`). A new cell, mix, configuration or
-metric is new files and new `BENCHMARK.json` entries; nothing here names
-one."""
+output check (`limits/<config>.json`, and `limits/<cell>.json` where a cell
+compares a number that its configuration's file does not hold). A new
+cell, mix, configuration or metric is new files and new `BENCHMARK.json`
+entries; nothing here names one.
+
+A reader is a file with `read(record) -> float | None`; the record is
+`bench.layer_record`'s: the window's calls, the backend passes' times, the
+worker's counts, the trace's summary, and what the program reports, read
+by name: its spans (`record["spans"]`, each with `name`, `parent`,
+`thread`, `call`, `start_s`, `end_s` and `traced`) and its log records
+(`record["log"]`, each a dict with its `kind`). A reader that finds
+nothing returns None."""
 
 from __future__ import annotations
 
@@ -62,6 +71,13 @@ def load_cell(name: str, root: Path = ROOT, bench_dir: Path | None = None) -> Ce
     readers = {m["name"]: load_reader(bench_dir / "layer_metrics" / f"{m['name']}.py")
                for m in layer}
     limits = json.loads((bench_dir / "limits" / f"{w['config']}.json").read_text())
+    own = bench_dir / "limits" / f"{name}.json"
+    if name != w["config"] and own.exists():
+        more = json.loads(own.read_text())
+        if set(more) & set(limits):
+            raise ValueError(f"{own.name} states limits that {w['config']}.json holds: "
+                             f"{sorted(set(more) & set(limits))}")
+        limits.update(more)
     return Cell(name=name, config_name=w["config"], traffic_name=w["traffic"],
                 chips=int(w["chips"]), config=config, mix=mix, end_to_end=e2e,
                 per_layer=layer, readers=readers, limits=limits)

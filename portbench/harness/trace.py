@@ -3,7 +3,9 @@ events kept in memory, reduced to the device's busy time (the union of the
 intervals in which a kernel, copy or fill ran, so that the worker's stream
 overlapping the main one is counted once), the slice's wall time, the
 device time by kernel name, and the longest idle gaps labelled by the
-innermost host operation open during each."""
+innermost host operation open during each. The slice's start and end are
+also kept on the window's clock (`slice_s`), so that spans can be told
+apart by whether they overlap it."""
 
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class Tracer:
         self.state = "idle"
         self.prof = self.mark = None
         self.t_on = self.start_s = 0.0
+        self.slice_s = None  # [start, end] on the window's clock
         self.summary = None
         self._prime()
 
@@ -49,8 +52,10 @@ class Tracer:
                 torch.cuda.synchronize(self.device)
 
     def wants(self, t: float) -> bool:
+        """Whether the call about to start at `t` seconds of the window is
+        traced."""
         if self.state == "idle" and t >= self.after_s:
-            t = time.perf_counter()
+            called = time.perf_counter()
             self.prof = torch.profiler.profile(activities=self._acts())
             self.prof.start()
             self.mark = torch.profiler.record_function(SLICE)
@@ -58,7 +63,8 @@ class Tracer:
             # the span counts from when the profiler runs: starting it can
             # take seconds
             self.t_on, self.state = time.perf_counter(), "on"
-            self.start_s = self.t_on - t
+            self.start_s = self.t_on - called
+            self.slice_s = [t + self.start_s, None]
         elif self.state == "on" and time.perf_counter() >= self.t_on + self.span_s:
             self._stop()
         return self.state == "on"
@@ -70,14 +76,15 @@ class Tracer:
     def _stop(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.mark.__exit__(None, None, None)
         span_s = time.perf_counter() - self.t_on
+        self.slice_s[1] = self.slice_s[0] + span_s
+        self.mark.__exit__(None, None, None)
         self.prof.stop()
         self.state = "done"
         t0 = time.perf_counter()
         self.summary = reduce(self.prof)
         self.summary.update(reduce_s=time.perf_counter() - t0, start_s=self.start_s,
-                            host_span_s=span_s)
+                            host_span_s=span_s, slice_s=list(self.slice_s))
         self.prof = self.mark = None
 
 

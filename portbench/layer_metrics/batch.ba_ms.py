@@ -1,0 +1,9 @@
+"""Median host ms of the program's `batch.ba` span: `BatchSession`'s BA of
+a step's inserts, over every stream it serves; spans outside the traced
+slice."""
+
+from portbench.harness.bench import span_median_ms
+
+
+def read(record):
+    return span_median_ms(record, "batch.ba")

@@ -48,6 +48,7 @@ os.environ["USE_FLAX"] = "0"
 sys.path.insert(0, _ROOT)
 
 import argparse  # noqa: E402
+import faulthandler  # noqa: E402
 import json  # noqa: E402
 
 
@@ -59,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
+    # a fatal signal prints every thread's stack on standard error
+    faulthandler.enable()
     import torch
 
     from portbench.harness import bench, spec

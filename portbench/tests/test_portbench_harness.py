@@ -82,6 +82,59 @@ def test_a_new_cell_mix_config_and_metric_need_only_new_files(tmp_path):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
+def test_a_reader_of_a_span_or_a_log_record_and_a_cells_limit_need_only_new_files(tmp_path):
+    """A later cell that reads what the program reports, and compares a
+    number its configuration's limits lack, brings only new files."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    pb = tmp_path / "portbench"
+    before = _digest(pb)
+    mix = json.loads((pb / "traffic" / "sweep.json").read_text())
+    mix.update(frames=1260, span=630, recording_calls=630,
+               checks=mix["checks"] + ["loop_gap_mm"])
+    (pb / "traffic" / "lap.json").write_text(json.dumps(mix))
+    (pb / "limits" / "astra_session.lap.json").write_text(json.dumps({"loop_gap_mm": 0.5}))
+    (pb / "layer_metrics" / "session.decide_ms.py").write_text(
+        "from portbench.harness.bench import span_median_ms\n\n\n"
+        "def read(record):\n    return span_median_ms(record, 'session.decide')\n")
+    (pb / "layer_metrics" / "worker.loops.py").write_text(
+        "def read(record):\n"
+        "    n = [r for r in record['log'] if r['kind'] == 'backend' and r['loop']]\n"
+        "    return float(len(n)) if record['log'] else None\n")
+    bench_json = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench_json["workloads"].append({"name": "astra_session.lap", "config": "astra_session",
+                                    "traffic": "lap", "chips": 1, "why": "x"})
+    for name in ("session.decide_ms", "worker.loops"):
+        bench_json["per_layer"].append({"name": name, "unit": "ms", "better": "lower",
+                                        "source": "program_span", "layer": "x",
+                                        "moves": "frames_per_s",
+                                        "workloads": ["astra_session.lap"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench_json))
+
+    cell = spec.load_cell("astra_session.lap", root=tmp_path, bench_dir=pb)
+    assert cell.limits["loop_gap_mm"] == 0.5
+    assert {k: v for k, v in cell.limits.items() if k != "loop_gap_mm"} == spec.load_cell(
+        "astra_session.sweep").limits
+    assert traffic.schedule(cell.mix, 1, 630)[-1, 0] == 629
+    span = {"name": "session.decide", "parent": "session.frame", "thread": 1, "call": 0}
+    record = {"spans": [dict(span, start_s=1.0, end_s=1.002, traced=False),
+                        dict(span, start_s=2.0, end_s=2.004, traced=False),
+                        dict(span, start_s=3.0, end_s=3.5, traced=True)],
+              "log": [{"kind": "backend", "loop": True}, {"kind": "backend", "loop": False},
+                      {"kind": "frame_window"}]}
+    assert cell.readers["session.decide_ms"](record) == pytest.approx(3.0)
+    assert cell.readers["worker.loops"](record) == 1.0
+    assert cell.readers["worker.loops"]({"log": []}) is None
+    after = _digest(pb)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+    # a cell's own limits add numbers and never restate its configuration's
+    (pb / "limits" / "astra_session.lap.json").write_text(json.dumps({"ba_gap_mm": 1.0}))
+    with pytest.raises(ValueError):
+        spec.load_cell("astra_session.lap", root=tmp_path, bench_dir=pb)
+
+
 @pytest.mark.parametrize("mix_name", ["sweep", "hold"])
 def test_schedule_is_continuous_in_range_and_free_of_the_seed(mix_name):
     mix = json.loads((ROOT / "portbench" / "traffic" / f"{mix_name}.json").read_text())
